@@ -22,3 +22,8 @@ def _setup_jax_cache():
 
 
 _setup_jax_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
