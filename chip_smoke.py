@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the hand-written kernels, holds each against its plain PyTorch
-version, drives the port's main path, and prints what it measured.
+version, drives the port's main paths, and prints what it measured.
 
   python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases, each asserting (a failure exits non-zero and prints no result):
-  1. device check, ``nvidia-smi`` name and power limit, parallel nvcc build;
+  1. device check, ``nvidia-smi`` name and power limit, parallel nvcc build
+     of all five kernels;
   2. each kernel against its plain version on the card, on the CPU tests'
-     small grids and at the main path's shapes, with kernel, plain and
-     library times (CUDA events) and the bound from the card's peak rates;
-  3. the main path, with the launch counters set to 0 just before it:
-     the scheduler-to-kernel handoff (``balanced_slice_sizes`` drives
-     ``ops.coschedule``), ``ops.sliced_matmul`` at its default slice size,
-     and ``SharedPodServer(use_reduced=False)`` serving two full-width
+     small grids and at the main paths' shapes, with kernel, plain and
+     library times (CUDA events) and the bound from the card's peak rates
+     (2a-2c: K3, K1, K2; 2d: K4 rwkv6_scan, from zero and from a given
+     state; 2e: K5 rg_lru, from zero and from h0);
+  3. the dense path, with the launch counters set to 0 just before it and
+     read just after: the scheduler-to-kernel handoff
+     (``balanced_slice_sizes`` drives ``ops.coschedule``),
+     ``ops.sliced_matmul`` at its default slice size, and
+     ``SharedPodServer(use_reduced=False)`` serving two full-width
      phi3-mini-3.8b tenants (a prefill job and a decode job);
+  3b. the recurrent path, counted the same way: a second
+     ``SharedPodServer(use_reduced=False)`` serving full-width rwkv6-1.6b and
+     recurrentgemma-9b tenants (a prefill and a decode job each, the two
+     jobs of an arch sharing one set of weights), whose prefill steps run
+     K4 and K5;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan come from the scheduler's TPU v5e model and are
@@ -34,11 +43,20 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)     # tests/test_kernels.py:17-19
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
+K4_TOL = {"float32": dict(atol=1e-3, rtol=1e-3),    # tests/test_kernels.py:75-76
+          "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+K5_TOL = dict(atol=1e-4, rtol=1e-4)                  # tests/test_kernels.py:88-89
 # K3 at the main shape, beside the allclose: the error's norm relative to
 # the plain version's, over the whole output and over each query row. A late
 # row's |out| is small, so a row norm sees a wrong key tile that the
 # absolute tolerance would not.
 K3_REL_TOL = 1e-2
+# K4 at the main shape: kernel and plain version both compute in f32 from
+# the same bf16 inputs and differ only in summation order.
+K4_REL_TOL = 1e-3
+# the __global__ functions of csrc/*.cu, to find them in a profile
+KERNEL_SYMBOLS = ("sliced_matmul_kernel", "coschedule_kernel",
+                  "flash_fwd_kernel", "wkv6_kernel", "rg_lru_kernel")
 
 
 def log(msg: str) -> None:
@@ -93,6 +111,60 @@ def rel_errs(got, want):
     return whole, rows
 
 
+def prefill_runs(rounds, name) -> int:
+    """Runs of a job's step in a drain, its warm-up in submit included."""
+    return 1 + sum(n1 * (k1 == name) + n2 * (k2 == name)
+                   for k1, k2, n1, n2, _ in rounds)
+
+
+def drain_report(torch, srv, res, label: str) -> None:
+    """Print a drain's rounds, each job's step timed alone, the serial sum
+    against the first and a warm drain of the same slices, and each step's
+    top device kernels. The first drain was the first on its streams (their
+    allocator pools start empty); a second drain of the same slices is the
+    warm one."""
+    rounds = res["rounds"]
+    for k1, k2, n1, n2, cp in rounds:
+        log(f"[{label}] round {k1} x {k2}: slices {n1}:{n2}, v5e-model "
+            f"predicted CP {cp:+.4f}")
+    log(f"[{label}] v5e-model predicted gain {res['predicted_gain']:+.4f}, "
+        f"v5e-model predicted makespan "
+        f"{res['plan']['predicted_makespan_cycles']:.0f} cycles")
+    solo = {name: time_ms(torch, srv._exec[name], 3) for name in srv.jobs}
+    ran = {name: sum(n1 * (k1 == name) + n2 * (k2 == name)
+                     for k1, k2, n1, n2, _ in rounds) for name in srv.jobs}
+    serial_s = sum(ran[name] * solo[name] for name in srv.jobs) / 1e3
+    for name, n in ran.items():
+        srv.jobs[name].num_slices = n
+    warm = srv.drain()
+    assert warm["rounds"] == rounds
+    log(f"[{label}] step alone: " + ", ".join(
+        f"{name} {solo[name]:.3f} ms x {ran[name]} slices" for name in
+        srv.jobs) + f"; serial sum {serial_s:.4f} s; drain wall_s first "
+        f"{res['wall_s']:.4f} (drain/serial {res['wall_s'] / serial_s:.4f}),"
+        f" warm {warm['wall_s']:.4f} (drain/serial "
+        f"{warm['wall_s'] / serial_s:.4f})")
+    from torch.profiler import ProfilerActivity, profile
+    for name in srv.jobs:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            srv._exec[name]()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in evs)
+        assert total > 0, f"{name}: the profiler saw no device time"
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
+        ours = [e for e in evs if any(k in e.key for k in KERNEL_SYMBOLS)]
+        log(f"[profile {name}] device time {total / 1e3:.3f} ms in "
+            f"{sum(e.count for e in evs)} kernels; top: " + "; ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+                f"x{e.count}" for e in top) + "; the port's kernels: " + (
+                "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+                          f" ms x{e.count} "
+                          f"({e.self_device_time_total / total:.1%})"
+                          for e in ours) or "none"))
+
+
 def main() -> int:
     if not __debug__:
         sys.exit("chip_smoke: its checks are asserts; run it without -O")
@@ -111,6 +183,8 @@ def main() -> int:
     from repro_torch.kernels import coschedule as CS
     from repro_torch.kernels import sliced_matmul as SM
     from repro_torch.launch.serve import Job, SharedPodServer
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -265,7 +339,115 @@ def main() -> int:
         f"{ms / (mm_only + st_only):.4f}), plain {plain:.3f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}; serial bound {serial_bound:.4f} ms)")
 
-    # ---- phase 3: the main path, counted ---------------------------------
+    # ---- phase 2d: K4 rwkv6_scan -----------------------------------------
+    def wkv_inputs(b, s, h, n, dt):
+        r, k, v = (randn((b, s, h, n), dt) for _ in range(3))
+        w_log = -torch.exp(randn((b, s, h, n), torch.float32) - 1.0)
+        return r, k, v, w_log, randn((h, n), torch.float32) * 0.1
+
+    for (b, s, h, n, chunk) in [(2, 64, 2, 32, 16), (1, 128, 4, 64, 32)]:
+        for dt in (torch.float32, torch.bfloat16):
+            tol = K4_TOL[str(dt).split(".")[-1]]
+            r, k, v, w_log, u = wkv_inputs(b, s, h, n, dt)
+            err = max_err(torch, ops.rwkv6_scan(r, k, v, w_log, u,
+                                                chunk=chunk),
+                          ref.rwkv6(r, k, v, w_log, u)[0], tol)
+            s0 = randn((b, h, n, n), torch.float32)
+            state = s0.clone()
+            got = ops.rwkv6_scan(r, k, v, w_log, u, chunk=chunk, state=state)
+            want, want_s = ref.rwkv6(r, k, v, w_log, u, s0)
+            err_s = max(max_err(torch, got, want, tol),
+                        max_err(torch, state, want_s, tol))
+            log(f"[K4 grid] {(b, s, h, n)} chunk {chunk} {dt} err {err:.3e}; "
+                f"from a given state: out and final state err {err_s:.3e}")
+    shape = (4, 2048, 32, 64)
+    b, s, h, n = shape
+    r, k, v, w_log, u = wkv_inputs(b, s, h, n, torch.bfloat16)
+    s0 = randn((b, h, n, n), torch.float32)
+    zeros = torch.zeros(b, h, n, n, device=dev)
+    k4_errs = []
+    for init in (zeros, s0):      # the main path's zero state, then a given one
+        state = init.clone()
+        got = ops.rwkv6_scan(r, k, v, w_log, u, state=state)
+        want, want_s = R.rwkv6_chunked(r, k, v, w_log, u, init)
+        assert bool(torch.isfinite(want).all()), "plain K4 went non-finite"
+        seq, seq_s = ref.rwkv6(r, k, v, w_log, u, init)
+        k4_errs.append(max(max_err(torch, got, want, K4_TOL["float32"]),
+                           max_err(torch, state, want_s, K4_TOL["float32"]),
+                           max_err(torch, got, seq, K4_TOL["float32"]),
+                           max_err(torch, state, seq_s, K4_TOL["float32"])))
+        rel_whole, rel_row = rel_errs(got, want)
+        assert rel_whole < K4_REL_TOL and rel_row < K4_REL_TOL, \
+            f"K4 relative error {rel_whole:.3e} whole, {rel_row:.3e} worst row"
+    del got, want, want_s, seq, seq_s
+    state = zeros.clone()
+    ms = time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w_log, u,
+                                               state=state), 20)
+    plain = time_ms(torch, lambda: R.rwkv6_chunked(r, k, v, w_log, u, zeros),
+                    3)
+    c = 32
+    per_chunk = 4 * c * n * n + 3.5 * c * c * n + 10 * c * n
+    flops = per_chunk * (s // c) * b * h
+    nbytes = (3 * r.numel() * r.element_size() + 2 * 4 * w_log.numel()
+              + 4 * u.numel() + 2 * 4 * zeros.numel())
+    b_ms, b_by = bound(flops, nbytes, "float32")
+    rows["rwkv6_scan"] = dict(
+        source="src/repro_torch/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:58",
+        max_abs_err=max(k4_errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, rel_err=rel_whole,
+        row_rel_err=rel_row)
+    log(f"[K4] {shape} bf16 r/k/v, f32 w/u/state, chunk 32: err "
+        f"{max(k4_errs):.3e} (tol atol=rtol=1e-3, against the plain chunked "
+        f"version and the sequential oracle, out and final state, from zero "
+        f"and from a given state), relative {rel_whole:.3e} whole and "
+        f"{rel_row:.3e} worst row (tol {K4_REL_TOL:g}); kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} "
+        f"GFLOP f32 at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); no "
+        f"one PyTorch call computes it")
+    del r, k, v, w_log, u, s0, zeros, state
+
+    # ---- phase 2e: K5 rg_lru ---------------------------------------------
+    def lru_inputs(b, s, w):
+        return (randn((b, s, w), torch.float32),
+                -torch.exp(randn((b, s, w), torch.float32)))
+
+    for (b, s, w, chunk, bw) in [(2, 256, 512, 64, 256),
+                                 (1, 128, 1024, 128, 512)]:
+        xs, als = lru_inputs(b, s, w)
+        h0 = randn((b, w), torch.float32)
+        err = max_err(torch, ops.rg_lru(xs, als, chunk=chunk, bw=bw),
+                      ref.rg_lru(xs, als), K5_TOL)
+        err_h = max_err(torch, ops.rg_lru(xs, als, chunk=chunk, bw=bw, h0=h0),
+                        ref.rg_lru(xs, als, h0), K5_TOL)
+        log(f"[K5 grid] {(b, s, w)} f32 err {err:.3e}; from h0 err "
+            f"{err_h:.3e}")
+    shape = (1, 2048, 4096)
+    xs, als = lru_inputs(*shape)
+    h0 = torch.zeros(shape[0], shape[2], device=dev)
+    k5_errs = []
+    for init in (h0, randn((shape[0], shape[2]), torch.float32)):
+        got = ops.rg_lru(xs, als, h0=init)
+        k5_errs.append(max(
+            max_err(torch, got, R.rglru_scan(xs, als, init)[0], K5_TOL),
+            max_err(torch, got, ref.rg_lru(xs, als, init), K5_TOL)))
+    del got
+    ms = time_ms(torch, lambda: ops.rg_lru(xs, als, h0=h0), 20)
+    plain = time_ms(torch, lambda: R.rglru_scan(xs, als, h0), 3)
+    nbytes = 3 * 4 * xs.numel() + 4 * h0.numel()
+    b_ms, b_by = bound(9.0 * xs.numel(), nbytes, "float32")
+    rows["rg_lru"] = dict(
+        source="src/repro_torch/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru.py:41", max_abs_err=max(k5_errs),
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[K5] {shape} f32: err {max(k5_errs):.3e} (tol atol=rtol=1e-4, "
+        f"against the plain scan and the oracle, from zero and from h0); "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s); no one PyTorch call "
+        f"computes it")
+    del xs, als, h0
+
+    # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
     max_err(torch, mm, mm_want, BF16_TOL)
@@ -292,14 +474,9 @@ def main() -> int:
     assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
     assert any(k2 is not None for _, k2, _, _, _ in rounds), \
         "no co-scheduled round"
-    prefill_runs = 1 + sum(n1 if k1 == prefill.name else
-                           (n2 if k2 == prefill.name else 0)
-                           for k1, k2, n1, n2, _ in rounds)
     n_layers = get_config("phi3-mini-3.8b").num_layers
-    assert launches["flash_attention"] == n_layers * prefill_runs, \
-        (launches, prefill_runs)
-    for name in _build.NAMES:
-        assert launches[name] > 0, f"{name} never launched on the main path"
+    runs = prefill_runs(rounds, prefill.name)
+    assert launches["flash_attention"] == n_layers * runs, (launches, runs)
     logits = {name: srv._exec[name]() for name in srv.jobs}
     torch.cuda.synchronize()
     assert logits[prefill.name].shape == (1, 2048, 32064)
@@ -310,53 +487,81 @@ def main() -> int:
         f"seeded random weights; {len(srv.jobs)} tenants submitted in "
         f"{t_submit:.2f} s (warm-up included); drain wall_s "
         f"{res['wall_s']:.4f}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for k1, k2, n1, n2, cp in rounds:
-        log(f"[serve] round {k1} x {k2}: slices {n1}:{n2}, v5e-model "
-            f"predicted CP {cp:+.4f}")
-    log(f"[serve] v5e-model predicted gain {res['predicted_gain']:+.4f}, "
-        f"v5e-model predicted makespan "
-        f"{res['plan']['predicted_makespan_cycles']:.0f} cycles; "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"flash_attention launches {launches['flash_attention']} = "
-        f"{n_layers} x {prefill_runs} prefill slices (warm-up included)")
-    log(f"[main path] launches {launches}")
+        f"{n_layers} x {runs} prefill slices (warm-up included)")
+    log(f"[main path] dense launches {launches}")
+    drain_report(torch, srv, res, "serve")
+    del srv, logits, res
+    torch.cuda.empty_cache()
 
-    # the same slices one after the other on one stream, from each job's
-    # step timed alone: what the drain's two streams are held against. The
-    # main path's drain was the first on its streams (their allocator pools
-    # start empty); a second drain of the same slices is the warm one.
-    solo = {name: time_ms(torch, srv._exec[name], 3) for name in srv.jobs}
-    ran = {name: sum(n1 * (k1 == name) + n2 * (k2 == name)
-                     for k1, k2, n1, n2, _ in rounds) for name in srv.jobs}
-    serial_s = sum(ran[name] * solo[name] for name in srv.jobs) / 1e3
-    for name, n in ran.items():
-        srv.jobs[name].num_slices = n
-    warm = srv.drain()
-    assert warm["rounds"] == rounds
-    log("[serve] step alone: " + ", ".join(
-        f"{name} {solo[name]:.3f} ms x {ran[name]} slices" for name in
-        srv.jobs) + f"; serial sum {serial_s:.4f} s; drain wall_s first "
-        f"{res['wall_s']:.4f} (drain/serial {res['wall_s'] / serial_s:.4f}),"
-        f" warm {warm['wall_s']:.4f} (drain/serial "
-        f"{warm['wall_s'] / serial_s:.4f})")
-    from torch.profiler import ProfilerActivity, profile
-    for name in srv.jobs:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            srv._exec[name]()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in evs)
-        assert total > 0, f"{name}: the profiler saw no device time"
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"[profile {name}] device time {total / 1e3:.3f} ms in "
-            f"{sum(e.count for e in evs)} kernels; top: " + "; ".join(
-                f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
-                f"x{e.count}" for e in top))
+    # ---- phase 3b: the recurrent path, counted -----------------------------
+    archs = ("rwkv6-1.6b", "recurrentgemma-9b")
+    t0 = time.time()
+    weights = {}
+    for arch in archs:        # each arch's weights once, for both its tenants
+        wgen = torch.Generator(device=dev).manual_seed(0)
+        weights[arch] = T.init_params(get_config(arch), wgen, device=dev)
+    n_params = {arch: T.count_params(weights[arch]) for arch in archs}
+    t_init = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    jobs = [Job("tenantC-rwkv6-prefill", "rwkv6-1.6b", "prefill", 4, 4, 2048),
+            Job("tenantD-rwkv6-decode", "rwkv6-1.6b", "decode", 8, 32, 4096),
+            Job("tenantE-rgemma-prefill", "recurrentgemma-9b", "prefill", 4,
+                1, 2048),
+            Job("tenantF-rgemma-decode", "recurrentgemma-9b", "decode", 8, 8,
+                4096)]
+    ops.reset_launches()
+    t0 = time.time()
+    srv = SharedPodServer(use_reduced=False, device="cuda")
+    for job in jobs:
+        srv.submit(job, params=weights[job.arch])
+    t_submit = time.time() - t0
+    res = srv.drain()
+    rec_launches = dict(ops.LAUNCHES)
+    rounds = res["rounds"]
+    assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
+    assert any(k2 is not None for _, k2, _, _, _ in rounds), \
+        "no co-scheduled round"
+    kinds = {arch: get_config(arch).layer_kinds() for arch in archs}
+    n_wkv, n_lru = kinds["rwkv6-1.6b"].count("rwkv6"), \
+        kinds["recurrentgemma-9b"].count("rglru")
+    runs_c = prefill_runs(rounds, jobs[0].name)
+    runs_e = prefill_runs(rounds, jobs[2].name)
+    assert (n_wkv, n_lru) == (24, 26), (n_wkv, n_lru)
+    assert rec_launches["rwkv6_scan"] == n_wkv * runs_c, (rec_launches, runs_c)
+    assert rec_launches["rg_lru"] == n_lru * runs_e, (rec_launches, runs_e)
+    logits = {name: srv._exec[name]() for name in srv.jobs}
+    torch.cuda.synchronize()
+    want_shapes = {jobs[0].name: (4, 2048, 65536), jobs[1].name: (32, 65536),
+                   jobs[2].name: (1, 2048, 256000), jobs[3].name: (8, 256000)}
+    for name, lg in logits.items():
+        assert tuple(lg.shape) == want_shapes[name], (name, lg.shape)
+        assert bool(torch.isfinite(lg.float()).all()), f"{name}: non-finite"
+    del logits
+    log(f"[serve-rec] rwkv6-1.6b (24 rwkv6 layers, d_model 2048, "
+        f"{n_params['rwkv6-1.6b'] / 1e9:.3f} B params) and recurrentgemma-9b "
+        f"(26 rglru + 12 local layers, d_model 4096, "
+        f"{n_params['recurrentgemma-9b'] / 1e9:.3f} B params) at full width, "
+        f"bf16, seeded random weights built in {t_init:.2f} s, each shared by "
+        f"its arch's two tenants; {len(srv.jobs)} tenants submitted in "
+        f"{t_submit:.2f} s (warm-up included); drain wall_s "
+        f"{res['wall_s']:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; rwkv6_scan "
+        f"launches {rec_launches['rwkv6_scan']} = {n_wkv} x {runs_c} prefill "
+        f"slices, rg_lru launches {rec_launches['rg_lru']} = {n_lru} x "
+        f"{runs_e} prefill slices (warm-up included)")
+    log(f"[main path] recurrent launches {rec_launches}")
+    drain_report(torch, srv, res, "serve-rec")
+    launches = {name: launches[name] + rec_launches[name]
+                for name in _build.NAMES}
+    for name in _build.NAMES:
+        assert launches[name] > 0, f"{name} never launched on the main paths"
 
     # ---- phase 4: results ------------------------------------------------
     kernels = []
-    for name in ("sliced_matmul", "coschedule", "flash_attention"):
+    for name in _build.NAMES:
         row = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": row["source"], "replaces": row["replaces"],

@@ -6,8 +6,9 @@ cache both go through ``ops.flash_attention`` in (B, H, S, D) layout, with
 k/v heads repeated for GQA: the CUDA kernel on the card, its plain version
 on the CPU. The reference reaches the same function through
 ``full_attention`` or ``chunked_attention`` (pure XLA); both stay here as
-plain functions for the tests. Decode attends over the cache with one
-einsum. MLA and local (windowed) attention wait for ROADMAP queue 1.
+plain functions for the tests, and the sliding-window ``local`` blocks of
+``transformer.py`` run on them. Decode attends over the cache with one
+einsum. MLA and a window inside an ``attn`` block wait for ROADMAP queue 1.
 
 Caches are updated in place: a decode step writes its token's k/v into the
 cache it was given and returns the same tensors, where the functional
@@ -141,7 +142,8 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     """x: (B,S,D). cache: dict(k, v) of (B,Smax,kv,hd), updated in place,
     or None. Returns (out, cache)."""
     if cfg.attention_kind == "local":
-        raise NotImplementedError("local attention: ROADMAP queue 1, item 10")
+        raise NotImplementedError("a window in an attn block: ROADMAP queue "
+                                  "1, item 18")
     b, s, d = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])

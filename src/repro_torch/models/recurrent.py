@@ -1,0 +1,294 @@
+"""Recurrent sequence mixers: RWKV6 ("Finch") and RG-LRU (Griffin).
+
+PyTorch counterpart of ``repro/models/recurrent.py``, with the same casts.
+A multi-token call (prefill, forward) goes through the port's kernels:
+RWKV6's time mix through ``ops.rwkv6_scan`` (K4) and the RG-LRU recurrence
+through ``ops.rg_lru`` (K5), each starting from the caller's state — on
+the card the hand-written kernel, on the CPU the plain chunked and scanned
+forms below, which are what the reference model computes. A one-token
+decode step is plain PyTorch, as in the reference.
+
+States are updated in place where a kernel can write them:
+``ops.rwkv6_scan`` overwrites the (B, H, N, N) state it is given with the
+final one, so a prefill writes straight into its cache.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+RWKV_LORA = 32
+DECAY_LORA = 64
+
+
+def _const(arr, *, device, lead):
+    """A numpy f32 constant repeated over the stack's leading axes."""
+    t = torch.as_tensor(np.asarray(arr, np.float32), device=device)
+    return t.expand(tuple(lead) + tuple(t.shape)).contiguous()
+
+
+# ===================================================================== #
+# RWKV6 time mix
+# ===================================================================== #
+def init_rwkv6(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
+               device="cpu", lead: tuple = ()):
+    d = cfg.d_model
+    n = cfg.rwkv_head_dim
+    nh = d // n
+    f32 = dict(dtype=torch.float32, device=device, lead=lead)
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    lead = tuple(lead)
+    return {
+        # token-shift mixing coefficients (base + low-rank data-dependent)
+        "mu": torch.zeros(lead + (5, d), device=device),      # w,k,v,r,g
+        "mu_x": torch.zeros(lead + (d,), device=device),
+        "lora_a": L.dense_init(generator, (5, d, RWKV_LORA), **f32),
+        "lora_b": L.dense_init(generator, (5, RWKV_LORA, d), **f32),
+        # decay: base + lora
+        "w_base": _const(
+            np.tile(-6.0 + 5.0 * (np.arange(n) / max(n - 1, 1)) ** 0.9, nh),
+            device=device, lead=lead),                         # (d,)
+        "w_lora_a": L.dense_init(generator, (d, DECAY_LORA), **f32),
+        "w_lora_b": L.dense_init(generator, (DECAY_LORA, d), **f32),
+        "wr": L.dense_init(generator, (d, d), **kw),
+        "wk": L.dense_init(generator, (d, d), **kw),
+        "wv": L.dense_init(generator, (d, d), **kw),
+        "wg": L.dense_init(generator, (d, d), **kw),
+        "wo": L.dense_init(generator, (d, d), 1.0 / np.sqrt(2 * n_layers),
+                           **kw),
+        "u": torch.zeros(lead + (nh, n), device=device),        # bonus
+        "ln_out": {"scale": torch.zeros(lead + (d,), device=device),
+                   "bias": torch.zeros(lead + (d,), device=device)},
+    }
+
+
+def _rwkv6_projections(x, x_prev, p):
+    """Token-shift + data-dependent interpolation -> r,k,v,g,w_log."""
+    dx = x_prev - x                                            # (B,S,D)
+    xx = x + dx * p["mu_x"].to(x.dtype)
+    # 5 low-rank mixes at once: (B,S,5,D)
+    hid = torch.tanh(torch.einsum("bsd,cdr->bscr", xx,
+                                  p["lora_a"].to(x.dtype)))
+    mix = torch.einsum("bscr,crd->bscd", hid, p["lora_b"].to(x.dtype))
+    mix = mix + p["mu"].to(x.dtype)                            # (B,S,5,D)
+    xw, xk, xv, xr, xg = [x + dx * mix[:, :, i] for i in range(5)]
+    r = xr @ p["wr"]
+    k = xk @ p["wk"]
+    v = xv @ p["wv"]
+    g = F.silu(xg @ p["wg"])
+    w_raw = (p["w_base"].float()
+             + torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"])
+    w_log = -torch.exp(w_raw)                                  # log decay <= 0
+    return r, k, v, g, w_log
+
+
+def rwkv6_chunked(r, k, v, w_log, u, state, chunk: int = 32):
+    """Chunkwise-parallel WKV6, the plain version of K4. r/k/v: (B,S,H,N)
+    (any float), w_log (B,S,H,N) f32 (<=0), u (H,N), state (B,H,N,N) f32.
+    Returns (out (B,S,H,N) f32, new_state).
+
+    The intra-chunk decay exp(la_prev_i - la_j) is masked to j < i with
+    ``where``, as the TPU kernel masks it (``rwkv6_scan.py:46``). The
+    reference model multiplies by the mask instead, and above the diagonal
+    the exponent is >= 0: where it overflows f32, inf * 0 gives NaN there
+    (ROADMAP queue 3, item 4). Wherever the reference is finite the two
+    agree exactly."""
+    b, s, h, n = r.shape
+    if s % chunk:
+        raise ValueError((s, chunk))
+    ii = torch.arange(chunk, device=r.device)
+    lower = (ii[:, None] > ii[None, :])[None, :, :, None]      # (1,C,C,1)
+    outs = []
+    for c0 in range(0, s, chunk):
+        rr, kk, vv = (a[:, c0:c0 + chunk].float() for a in (r, k, v))
+        ww = w_log[:, c0:c0 + chunk].float()                   # (B,C,H,N)
+        la = torch.cumsum(ww, dim=1)                           # (B,C,H,N) <=0
+        la_prev = la - ww                                      # exclusive
+        la_end = la[:, -1:]                                    # (B,1,H,N)
+        # inter-chunk: out_i += (r_i * exp(la_prev_i)) @ S
+        r_dec = rr * torch.exp(la_prev)
+        out = torch.einsum("bchn,bhnm->bchm", r_dec, state)
+        # intra-chunk: att[i,j] = sum_n r_i k_j exp(la_prev_i - la_j), j<i
+        dmat = torch.exp(la_prev[:, :, None] - la[:, None, :, :])
+        att = torch.einsum("bihn,bjhn,bijhn->bijh", rr, kk, dmat)
+        att = torch.where(lower, att, 0.0)
+        out = out + torch.einsum("bijh,bjhn->bihn", att, vv)
+        # bonus diagonal term: r_i (u * k_i) v_i
+        diag = torch.einsum("bchn,bchn->bch", rr, kk * u[None, None])
+        outs.append(out + diag[..., None] * vv)
+        # state update: S' = diag(exp(la_end)) S + sum_j exp(la_end - la_j) k_j v_j^T
+        k_dec = kk * torch.exp(la_end - la)
+        state = torch.exp(la_end[:, 0])[..., None] * state + \
+            torch.einsum("bchn,bchm->bhnm", k_dec, vv)
+    return torch.cat(outs, dim=1), state
+
+
+def rwkv6_step(r, k, v, w_log, u, state):
+    """Single-token recurrence. r/k/v/w_log: (B,H,N); state (B,H,N,N)."""
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
+    out = torch.einsum("bhn,bhnm->bhm", rf, state + u[None, ..., None] * kv)
+    state = torch.exp(w_log)[..., None] * state + kv
+    return out, state
+
+
+def _shifted(x, x_last):
+    """The previous token of each position: x_last (or zeros) first."""
+    if x_last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
+    """Full time-mix block. x (B,S,D).
+
+    state/x_last: decode carries ((B,H,N,N) f32, (B,D)). Returns
+    (out, (state, x_last)). A multi-token call overwrites ``state`` with the
+    final state (``ops.rwkv6_scan``); a one-token step returns a new one."""
+    b, s, d = x.shape
+    n = cfg.rwkv_head_dim
+    h = d // n
+    if state is None:
+        state = torch.zeros(b, h, n, n, device=x.device)
+    r, k, v, g, w_log = _rwkv6_projections(x, _shifted(x, x_last), p)
+    rh = r.reshape(b, s, h, n)
+    kh = k.reshape(b, s, h, n)
+    vh = v.reshape(b, s, h, n)
+    wh = w_log.reshape(b, s, h, n)
+    if s == 1:
+        o, state = rwkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
+                              p["u"], state)
+        o = o[:, None]
+    else:
+        c = chunk if s % chunk == 0 else int(np.gcd(s, chunk))
+        o = ops.rwkv6_scan(rh, kh, vh, wh, p["u"], chunk=max(c, 1),
+                           state=state)
+    o2 = o.reshape(b, s, d)
+    o2 = L.layernorm(o2.to(x.dtype), p["ln_out"]["scale"],
+                     p["ln_out"]["bias"])                      # group-norm approx
+    out = (o2 * g) @ p["wo"]
+    return out, (state, x[:, -1].float())
+
+
+def init_rwkv6_cmix(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
+                    device="cpu", lead: tuple = ()):
+    """RWKV channel-mix (squared-relu FFN with token shift)."""
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    return {
+        "mu_k": torch.zeros(tuple(lead) + (d,), device=device),
+        "wk": L.dense_init(generator, (d, f), **kw),
+        "wv": L.dense_init(generator, (f, d), 1.0 / np.sqrt(2 * n_layers),
+                           **kw),
+    }
+
+
+def rwkv6_cmix(x, p, *, x_last=None):
+    x_prev = _shifted(x, x_last)
+    xk = x + (x_prev - x) * p["mu_k"].to(x.dtype)
+    h = torch.square(F.relu(xk @ p["wk"]))
+    return h @ p["wv"], x[:, -1].float()
+
+
+# ===================================================================== #
+# RG-LRU (Griffin / RecurrentGemma)
+# ===================================================================== #
+CONV_WIDTH = 4
+LRU_C = 8.0
+
+
+def init_rglru(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
+               device="cpu", lead: tuple = ()):
+    d, w = cfg.d_model, cfg.lru_width
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    conv = torch.empty(tuple(lead) + (CONV_WIDTH, w), device=device)
+    return {
+        "w_in": L.dense_init(generator, (d, w), **kw),
+        "w_gate": L.dense_init(generator, (d, w), **kw),
+        "conv": conv.normal_(generator=generator).mul_(0.1),
+        "w_a": L.dense_init(generator, (w, w), **kw),          # recurrence gate
+        "w_x": L.dense_init(generator, (w, w), **kw),          # input gate
+        # Λ s.t. a = exp(-c·softplus(Λ)) spans [0.9, 0.999] at r=1
+        "lam": _const(
+            np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, w)) / LRU_C)),
+            device=device, lead=lead),
+        "w_out": L.dense_init(generator, (w, d), 1.0 / np.sqrt(2 * n_layers),
+                              **kw),
+    }
+
+
+def _causal_conv1d(x, kernel, conv_state=None):
+    """Depthwise causal conv. x (B,S,W), kernel (CW,W).
+
+    conv_state: (B, CW-1, W) previous inputs for decode. Returns (y, new_state).
+    The taps are summed in x's dtype, in order, as the reference sums them.
+    """
+    b, s, w = x.shape
+    cw = kernel.shape[0]
+    if conv_state is None:
+        pad = torch.zeros(b, cw - 1, w, dtype=x.dtype, device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                            # (B,S+CW-1,W)
+    kern = kernel.to(x.dtype)
+    y = xp[:, 0:s] * kern[0]
+    for i in range(1, cw):
+        y = y + xp[:, i:i + s] * kern[i]
+    return y, xp[:, -(cw - 1):].float()
+
+
+def rglru_scan(x, a_log, h0):
+    """h_t = a_t h_{t-1} + sqrt(1-a_t^2) x_t, the plain version of K5.
+
+    x (B,S,W) f32, a_log (B,S,W) f32 (log a_t <= 0), h0 (B,W) f32. The
+    reference runs ``lax.associative_scan``; torch has none, so this is a
+    loop over time (equal up to f32 rounding order). Returns (h, h_last).
+    """
+    a = torch.exp(a_log)
+    b_term = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log),
+                                    min=1e-12)) * x
+    h = b_term[:, 0] + a[:, 0] * h0          # initial state folded in
+    hs = [h]
+    for t in range(1, x.shape[1]):
+        h = a[:, t] * h + b_term[:, t]
+        hs.append(h)
+    hh = torch.stack(hs, dim=1)
+    return hh, hh[:, -1]
+
+
+def rglru_forward(x, p, cfg, *, state=None):
+    """Griffin recurrent block. x (B,S,D).
+
+    state: dict(h (B,W) f32, conv (B,CW-1,W) f32) or None.
+    Returns (out, new_state).
+    """
+    b, s, d = x.shape
+    w = cfg.lru_width
+    if state is None:
+        state = {"h": torch.zeros(b, w, device=x.device),
+                 "conv": torch.zeros(b, CONV_WIDTH - 1, w, device=x.device)}
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")         # (B,S,W)
+    u = x @ p["w_in"]
+    u, conv_state = _causal_conv1d(u, p["conv"], state["conv"])
+    uf = u.float()
+    r = torch.sigmoid(u @ p["w_a"]).float()                    # recurrence gate
+    i = torch.sigmoid(u @ p["w_x"]).float()                    # input gate
+    a_log = -LRU_C * F.softplus(p["lam"]) * r                  # (B,S,W) <= 0
+    xin = i * uf
+    if s == 1:
+        a = torch.exp(a_log[:, 0])
+        h = a * state["h"] + torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) \
+            * xin[:, 0]
+        y = h[:, None]
+        h_last = h
+    else:
+        # one block over the whole call: the reference model scans any S,
+        # and the chunk/bw tiling checks belong to the TPU kernel's grid
+        y = ops.rg_lru(xin, a_log, chunk=s, bw=w, h0=state["h"])
+        h_last = y[:, -1]
+    out = (y.to(x.dtype) * gate) @ p["w_out"]
+    return out, {"h": h_last, "conv": conv_state}

@@ -1,14 +1,15 @@
-"""Model assembly: the stage-planned dense transformer.
+"""Model assembly: the stage-planned transformer.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
-``("attn", False)`` block. Parameters keep the reference's stacked layout —
+``attn``, sliding-window ``local``, ``rwkv6`` and ``rglru`` block kinds.
+Parameters keep the reference's stacked layout —
 ``params["stage<i>"]["sub<j>"]`` holds each weight with a leading
 ``repeats`` axis — so converting the reference's weights is a tree-map
 (``repro_torch.convert``). Where the reference runs each stage under
 ``lax.scan`` with remat, this runs a Python loop over the stack under
-``torch.inference_mode()``. Sharding (``constrain``) is ROADMAP queue 1,
-item 14; the other block kinds raise ``NotImplementedError`` naming their
-ROADMAP item.
+``torch.inference_mode()``, and writes every cache in place. Sharding
+(``constrain``) is ROADMAP queue 1, item 14; MoE, MLA, cross-attention and
+learned positions raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,8 +17,11 @@ import dataclasses
 
 import torch
 
+import numpy as np
+
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -60,11 +64,7 @@ def stage_plan(cfg) -> list:
 
 def _check_supported(cfg, sig):
     kind, is_moe = sig
-    if kind == "local":
-        raise NotImplementedError("local attention: ROADMAP queue 1, item 10")
-    if kind in ("rwkv6", "rglru"):
-        raise NotImplementedError(f"{kind}: ROADMAP queue 1, item 8")
-    if kind != "attn":
+    if kind not in ("attn", "local", "rwkv6", "rglru"):
         raise ValueError(kind)
     if is_moe:
         raise NotImplementedError("MoE: ROADMAP queue 1, item 9")
@@ -85,23 +85,155 @@ def _torch_dtype(name_or_dtype):
 # ===================================================================== #
 def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
     _check_supported(cfg, sig)
+    kind, _ = sig
     kw = dict(device=device, lead=lead)
-    return {"norm1": L.init_norm(cfg.norm, cfg.d_model, **kw),
-            "norm2": L.init_norm(cfg.norm, cfg.d_model, **kw),
-            "attn": A.init_attention(generator, cfg, n_layers, dtype=dtype,
-                                     **kw),
-            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
-                              n_layers, dtype=dtype, **kw)}
+    p = {"norm1": L.init_norm(cfg.norm, cfg.d_model, **kw),
+         "norm2": L.init_norm(cfg.norm, cfg.d_model, **kw)}
+    if kind in ("attn", "local"):
+        p["attn"] = A.init_attention(generator, cfg, n_layers, dtype=dtype,
+                                     **kw)
+    elif kind == "rwkv6":
+        p["tmix"] = R.init_rwkv6(generator, cfg, n_layers, dtype=dtype, **kw)
+    else:
+        p["rec"] = R.init_rglru(generator, cfg, n_layers, dtype=dtype, **kw)
+    if kind == "rwkv6":
+        p["cmix"] = R.init_rwkv6_cmix(generator, cfg, n_layers, dtype=dtype,
+                                      **kw)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                              n_layers, dtype=dtype, **kw)
+    return p
+
+
+def _init_block_cache(cfg, sig, batch, max_len, *, dtype, device, lead):
+    kind, _ = sig
+    lead = tuple(lead)
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "attn":
+        return A.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
+                            lead=lead)
+    if kind == "local":
+        w = min(cfg.local_window, max_len)
+        shape = lead + (batch, w, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.full(lead + (w,), -1, dtype=torch.int32,
+                                  device=device)}
+    if kind == "rwkv6":
+        h, n = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"state": torch.zeros(lead + (batch, h, n, n), **f32),
+                "x_last_t": torch.zeros(lead + (batch, cfg.d_model), **f32),
+                "x_last_c": torch.zeros(lead + (batch, cfg.d_model), **f32)}
+    w = cfg.lru_width
+    return {"h": torch.zeros(lead + (batch, w), **f32),
+            "conv": torch.zeros(lead + (batch, R.CONV_WIDTH - 1, w), **f32)}
+
+
+def _local_ring_update(cache, k_new, v_new, positions):
+    """Write (B,S,kv,hd) tokens at ring slots pos % W, in place."""
+    w = cache["k"].shape[1]
+    if k_new.shape[1] >= w:
+        k_new, v_new = k_new[:, -w:], v_new[:, -w:]
+        positions = positions[-w:]
+    slots = positions % w
+    cache["k"][:, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][:, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][slots] = positions.to(cache["pos"].dtype)
+    return cache
+
+
+def _local_ring_attend(q, cache, t, window):
+    """Decode attention over a ring cache with stored absolute positions."""
+    b, _, h, hd = q.shape
+    kvh = cache["k"].shape[2]
+    g = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, kvh, g, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                          cache["k"].float()) * scale
+    pos = cache["pos"]
+    valid = (pos >= 0) & (pos <= t) & (pos > t - window)
+    logits = torch.where(valid, logits, A.NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p, cache["v"].float())
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _local_attention_block(x, p, cfg, positions, cache, t):
+    """Local (sliding-window) attention with a ring-buffer cache, on the
+    plain attention functions, as the reference runs it (no kernel: K3
+    takes neither a window nor head_dim 256, ROADMAP queue 1, item 18)."""
+    b, s, d = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
+    k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
+    if cache is not None:
+        pos_vec = positions[0] if positions.ndim == 2 else positions
+        _local_ring_update(cache, k, v, pos_vec)
+        if s == 1:
+            o = _local_ring_attend(q, cache, pos_vec[-1], cfg.local_window)
+        else:
+            blk = A._pick_block(s, s)
+            o = A.chunked_attention(q, k, v, causal=True,
+                                    window=cfg.local_window, q_block=blk,
+                                    kv_block=blk)
+    else:
+        blk = A._pick_block(s, s)
+        if s <= 2 * blk:
+            o = A.full_attention(q, k, v, causal=True, window=cfg.local_window)
+        else:
+            o = A.chunked_attention(q, k, v, causal=True,
+                                    window=cfg.local_window,
+                                    q_block=blk, kv_block=blk)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def _store(cache, key, value):
+    """Write ``value`` into the cache's tensor (a view into the stacked
+    caches), unless the kernel already wrote it there."""
+    if value is not cache[key]:
+        cache[key].copy_(value)
 
 
 def apply_block(x, bp, cfg, sig, positions, *, cache=None, t=None):
-    """One dense block. Returns (x, cache)."""
+    """One block. ``cache`` (the block's views into the stacked caches) is
+    updated in place. Returns (x, cache)."""
     _check_supported(cfg, sig)
+    kind, _ = sig
     h = L.norm(x, bp["norm1"], cfg.norm)
-    a, cache = A.gqa_forward(h, bp["attn"], cfg, positions, cache=cache, t=t)
+    if kind == "attn":
+        a, cache = A.gqa_forward(h, bp["attn"], cfg, positions, cache=cache,
+                                 t=t)
+    elif kind == "local":
+        a = _local_attention_block(h, bp["attn"], cfg, positions, cache, t)
+    elif kind == "rwkv6":
+        st = (cache["state"], cache["x_last_t"]) if cache is not None \
+            else (None, None)
+        a, (state, x_last) = R.rwkv6_forward(h, bp["tmix"], cfg,
+                                             state=st[0], x_last=st[1])
+        if cache is not None:
+            _store(cache, "state", state)
+            _store(cache, "x_last_t", x_last)
+    else:
+        st = ({"h": cache["h"], "conv": cache["conv"]}
+              if cache is not None else None)
+        a, ns = R.rglru_forward(h, bp["rec"], cfg, state=st)
+        if cache is not None:
+            _store(cache, "h", ns["h"])
+            _store(cache, "conv", ns["conv"])
     x = x + a
     h2 = L.norm(x, bp["norm2"], cfg.norm)
-    return x + L.mlp(h2, bp["mlp"], cfg.act), cache
+    if kind == "rwkv6":
+        f, x_last_c = R.rwkv6_cmix(
+            h2, bp["cmix"],
+            x_last=cache["x_last_c"] if cache is not None else None)
+        if cache is not None:
+            _store(cache, "x_last_c", x_last_c)
+    else:
+        f = L.mlp(h2, bp["mlp"], cfg.act)
+    return x + f, cache
 
 
 # ===================================================================== #
@@ -166,7 +298,7 @@ def forward(params, cfg, batch, *, caches=None, t=None):
     """batch: tokens (B,S) [+ positions]. Returns (logits, caches, aux).
 
     ``caches`` are updated in place and returned; ``aux`` is the reference's
-    MoE loss, zero for dense blocks."""
+    MoE loss, zero here (MoE is not ported)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if "positions" in batch:
@@ -197,9 +329,10 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=None,
         for sig in st.cycle:
             _check_supported(cfg, sig)
         caches[f"stage{si}"] = {
-            f"sub{ci}": A.init_cache(cfg, batch, max_len, dtype=dtype,
-                                     device=device, lead=(st.repeats,))
-            for ci in range(len(st.cycle))}
+            f"sub{ci}": _init_block_cache(cfg, sig, batch, max_len,
+                                          dtype=dtype, device=device,
+                                          lead=(st.repeats,))
+            for ci, sig in enumerate(st.cycle)}
     return caches
 
 

@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sliced_matmul as SM
 from repro_torch.launch import serve as TS
+from repro_torch.models import recurrent as R
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +74,86 @@ def test_server_drains_through_the_kernels(cuda):
                            for k1, k2, n1, n2, _ in res["rounds"])
     layers = reduced(get_config("phi3-mini-3.8b")).num_layers
     assert ops.LAUNCHES["flash_attention"] == layers * prefill_runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,n,chunk", [(2, 64, 2, 32, 16),
+                                           (1, 128, 4, 64, 32),
+                                           (2, 80, 2, 64, 16)])
+def test_rwkv6_scan_matches_plain(cuda, b, s, h, n, chunk, dtype):
+    """K4 from zero and from a given state, against the sequential oracle
+    and the plain chunked version, with tests/test_kernels.py:75-76's
+    tolerances (f32 1e-3, bf16 5e-2). S = 80 leaves a ragged last chunk of
+    the kernel's own 32."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    r, k, v = (randn(b, s, h, n).to(dtype) for _ in range(3))
+    w_log = -torch.exp(randn(b, s, h, n) - 1.0)
+    u = randn(h, n) * 0.1
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 \
+        else dict(atol=1e-3, rtol=1e-3)
+    want, _ = ref.rwkv6(r, k, v, w_log, u)
+    torch.testing.assert_close(ops.rwkv6_scan(r, k, v, w_log, u, chunk=chunk),
+                               want, **tol)
+    s0 = randn(b, h, n, n)
+    want, want_s = ref.rwkv6(r, k, v, w_log, u, s0)
+    plain, plain_s = R.rwkv6_chunked(r, k, v, w_log, u, s0, chunk=chunk)
+    state = s0.clone()
+    got = ops.rwkv6_scan(r, k, v, w_log, u, chunk=chunk, state=state)
+    for a, b_ in ((got, want), (state, want_s), (got, plain),
+                  (state, plain_s)):
+        torch.testing.assert_close(a, b_, **tol)
+
+
+def test_rwkv6_scan_checks_each_dtype(cuda):
+    """K4 takes bf16 r/k/v beside f32 w_log/u/state and casts nothing: a
+    bf16 w_log, or r/k/v of two dtypes, raise."""
+    x = torch.zeros(1, 32, 2, 32, device=cuda)
+    u = torch.zeros(2, 32, device=cuda)
+    xb = x.bfloat16()
+    ops.rwkv6_scan(xb, xb, xb, x, u)
+    for args in ((xb, xb, xb, xb, u), (xb, x, xb, x, u)):
+        with pytest.raises(ValueError):
+            ops.rwkv6_scan(*args)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 256, 512), (1, 128, 1024),
+                                   (3, 37, 100)])
+def test_rg_lru_matches_plain(cuda, b, s, w):
+    """K5 from zero and from h0 against the oracle and the plain scan,
+    1e-4 (tests/test_kernels.py:88-89); (3, 37, 100) is ragged in both
+    the kernel's time segments and its 32-channel blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(b, s, w, generator=gen, device=cuda)
+    a_log = -torch.exp(torch.randn(b, s, w, generator=gen, device=cuda))
+    h0 = torch.randn(b, w, generator=gen, device=cuda)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ops.rg_lru(x, a_log, chunk=s, bw=w),
+                               ref.rg_lru(x, a_log), **tol)
+    got = ops.rg_lru(x, a_log, chunk=s, bw=w, h0=h0)
+    torch.testing.assert_close(got, ref.rg_lru(x, a_log, h0), **tol)
+    torch.testing.assert_close(got, R.rglru_scan(x, a_log, h0)[0], **tol)
+
+
+def test_recurrent_server_drains_through_k4_and_k5(cuda):
+    srv = TS.SharedPodServer()
+    ops.reset_launches()
+    jobs = [TS.Job("c-prefill", "rwkv6-1.6b", "prefill", 4, 1, 32),
+            TS.Job("e-prefill", "recurrentgemma-9b", "prefill", 4, 1, 32),
+            TS.Job("f-decode", "recurrentgemma-9b", "decode", 6, 2, 32)]
+    for job in jobs:
+        srv.submit(job)
+    res = srv.drain()
+    assert all(j.num_slices == 0 for j in srv.jobs.values())
+    runs = {job.name: 1 + sum(n1 * (k1 == job.name) + n2 * (k2 == job.name)
+                              for k1, k2, n1, n2, _ in res["rounds"])
+            for job in jobs}
+    kinds = {arch: reduced(get_config(arch)).layer_kinds()
+             for arch in ("rwkv6-1.6b", "recurrentgemma-9b")}
+    assert ops.LAUNCHES["rwkv6_scan"] == \
+        kinds["rwkv6-1.6b"].count("rwkv6") * runs["c-prefill"]
+    assert ops.LAUNCHES["rg_lru"] == \
+        kinds["recurrentgemma-9b"].count("rglru") * runs["e-prefill"]

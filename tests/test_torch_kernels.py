@@ -1,6 +1,7 @@
 """The port's kernels (K1 sliced_matmul, K2 coschedule, K3 flash_attention)
 against the reference's ``repro.kernels.ops`` (Pallas in interpret mode),
-over the grids and tolerances of tests/test_kernels.py. On the CPU the
+over the grids and tolerances of tests/test_kernels.py; K4 and K5 are held
+to the reference in tests/test_torch_recurrent.py. On the CPU the
 port's ops run their plain versions; tests/test_torch_cuda.py holds the
 Hopper kernels to those plain versions on the card."""
 import jax.numpy as jnp
@@ -13,6 +14,8 @@ from repro.kernels import ops as jax_ops
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
+from repro_torch.kernels import rg_lru as LRU
+from repro_torch.kernels import rwkv6_scan as WKV
 from repro_torch.kernels import sliced_matmul as SM
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -107,6 +110,8 @@ def test_shape_checks_match_the_reference():
     lambda t: CS.coschedule(t, t, t.repeat(2, 1)),
     lambda t: FA.flash_attention(t[None, None, :, :64], t[None, None, :, :64],
                                  t[None, None, :, :64]),
+    lambda t: WKV.rwkv6_scan(*[t.view(1, 128, 2, 64)] * 4, t[0].view(2, 64)),
+    lambda t: LRU.rg_lru(t[None], t[None]),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: it never falls back."""
@@ -120,5 +125,9 @@ def test_cpu_path_counts_no_launches():
     q = torch.zeros(1, 1, 64, 32)
     ops.flash_attention(q, q, q)
     ops.sliced_matmul(torch.zeros(128, 128), torch.zeros(128, 128))
+    x = torch.zeros(1, 32, 2, 32)
+    ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 32))
+    ops.rg_lru(torch.zeros(1, 16, 64), torch.zeros(1, 16, 64))
     assert ops.LAUNCHES == {"sliced_matmul": 0, "coschedule": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "rwkv6_scan": 0,
+                            "rg_lru": 0}

@@ -186,7 +186,7 @@ def test_params_layout_and_init():
 
 
 @pytest.mark.parametrize("arch,reason", [("deepseek-v2-236b", "item 7"),
-                                         ("rwkv6-1.6b", "item 8"),
+                                         ("deepseek-v3-671b", "item 7"),
                                          ("whisper-small", "item 10")])
 def test_other_block_kinds_name_their_roadmap_item(arch, reason):
     with pytest.raises(NotImplementedError, match=reason):
