@@ -11,8 +11,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
-     (2a-2c: K3, K1, K2; 2d: K4 rwkv6_scan, from zero and from a given
-     state; 2e: K5 rg_lru, from zero and from h0);
+     (2a-2c: K3, K1, K2; K1 at slice sizes 4 and 132 and as one launch,
+     each beside its bound at that slice size; 2d: K4 rwkv6_scan, from zero
+     and from a given state; 2e: K5 rg_lru, from zero and from h0);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -54,9 +55,12 @@ K3_REL_TOL = 1e-2
 # K4 at the main shape: kernel and plain version both compute in f32 from
 # the same bf16 inputs and differ only in summation order.
 K4_REL_TOL = 1e-3
-# the __global__ functions of csrc/*.cu, to find them in a profile
-KERNEL_SYMBOLS = ("sliced_matmul_kernel", "coschedule_kernel",
+# the __global__ functions of csrc/*.cu, to find them in a profile: the
+# tensor-core paths of K1 and K3 (bf16) and their FMA paths (f32)
+KERNEL_SYMBOLS = ("sliced_matmul_wgmma_kernel", "sliced_matmul_kernel",
+                  "coschedule_kernel", "flash_fwd_wgmma_kernel",
                   "flash_fwd_kernel", "wkv6_kernel", "rg_lru_kernel")
+SMS = 132                                 # H100 SXM streaming multiprocessors
 
 
 def log(msg: str) -> None:
@@ -92,6 +96,20 @@ def bound(flops: float, nbytes: float, dtype: str):
     if t_ops >= t_bytes:
         return 1e3 * t_ops, "operations"
     return 1e3 * t_bytes, "bytes"
+
+
+def sliced_bound_ms(tiles: int, slice_size: int, tile_flops: float,
+                    nbytes: float, dtype: str = "bfloat16") -> float:
+    """Least time of a matmul cut into launches of ``slice_size`` tiles, one
+    CTA a tile (paper Fig. 3): ceil(tiles / s) launches of ceil(s / 132)
+    waves each, a wave no shorter than one tile on one SM at its 1/132
+    share of the peak. One launch of every tile is held to the whole
+    card's bound."""
+    if slice_size >= tiles:
+        return bound(tiles * tile_flops, nbytes, dtype)[0]
+    launches = math.ceil(tiles / slice_size)
+    waves = math.ceil(slice_size / SMS)
+    return launches * waves * 1e3 * tile_flops / (PEAK_FLOPS[dtype] / SMS)
 
 
 def max_err(torch, got, want, tol) -> float:
@@ -267,28 +285,42 @@ def main() -> int:
 
     a, bm = (randn((2048, 2048), torch.bfloat16) for _ in range(2))
     whole = one_launch(a, bm)
-    for ss in (1, 3, 4):
+    for ss in (1, 3, 4, SMS):     # 256 tiles: a ragged last slice of 132
         assert torch.equal(ops.sliced_matmul(a, bm, slice_size=ss), whole), \
             f"slice size {ss} is not bitwise equal to one launch"
-    log("[K1 bitwise] 2048^3 bf16: slice sizes 1, 3, 4 == one launch, bitwise")
+    log(f"[K1 bitwise] 2048^3 bf16: slice sizes 1, 3, 4, {SMS} == one "
+        f"launch, bitwise")
     n = 8192
     a, bm = randn((n, n), torch.bfloat16), randn((n, n), torch.bfloat16)
     mm_want = ref.matmul(a, bm)
     err = max_err(torch, ops.sliced_matmul(a, bm), mm_want, BF16_TOL)
+    err = max(err, max_err(torch, ops.sliced_matmul(a, bm, slice_size=SMS),
+                           mm_want, BF16_TOL))
     ms = time_ms(torch, lambda: ops.sliced_matmul(a, bm), 2)
-    ms_one = time_ms(torch, lambda: one_launch(a, bm), 3)
+    ms_132 = time_ms(torch, lambda: ops.sliced_matmul(a, bm, slice_size=SMS),
+                     5)
+    ms_one = time_ms(torch, lambda: one_launch(a, bm), 5)
     plain = time_ms(torch, lambda: ref.matmul(a, bm), 3)
     lib = time_ms(torch, lambda: torch.matmul(a, bm), 10)
-    b_ms, b_by = bound(2.0 * n ** 3, 3 * n * n * 2, "bfloat16")
+    nbytes = 3 * n * n * 2
+    b_ms, b_by = bound(2.0 * n ** 3, nbytes, "bfloat16")
+    tiles, tile_flops = (n // 128) ** 2, 2.0 * 128 * 128 * n
+    b4 = sliced_bound_ms(tiles, 4, tile_flops, nbytes)
+    b132 = sliced_bound_ms(tiles, SMS, tile_flops, nbytes)
     rows["sliced_matmul"] = dict(
         source="src/repro_torch/csrc/sliced_matmul.cu",
         replaces="src/repro/kernels/sliced_matmul.py:44", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        one_launch_ms=ms_one)
-    log(f"[K1] 8192^3 bf16: err {err:.3e} (tol atol=rtol=2e-2) kernel "
-        f"slice_size=4 {ms:.3f} ms, one launch {ms_one:.3f} ms, plain "
-        f"{plain:.3f} ms, torch.matmul {lib:.3f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        one_launch_ms=ms_one, slice132_ms=ms_132, sliced_bound_ms=b4,
+        slice132_bound_ms=b132)
+    log(f"[K1] 8192^3 bf16 ({tiles} tiles): err {err:.3e} (tol "
+        f"atol=rtol=2e-2, slice sizes 4 and {SMS}); kernel at slice_size=4 "
+        f"{ms:.3f} ms (bound {b4:.4f} ms: {tiles // 4} launches x 1 wave), "
+        f"at slice_size={SMS} {ms_132:.3f} ms (bound {b132:.4f} ms: "
+        f"{math.ceil(tiles / SMS)} launches x 1 wave), one launch "
+        f"{ms_one:.3f} ms (bound {b_ms:.4f} ms, {b_by}); slicing overhead "
+        f"T_s/T_one - 1: {ms / ms_one - 1:.4f} at 4, {ms_132 / ms_one - 1:.4f}"
+        f" at {SMS}; plain {plain:.3f} ms, torch.matmul {lib:.3f} ms")
 
     # ---- phase 2c: K2 coschedule ----------------------------------------
     for run_a, run_b in [(1, 1), (2, 1), (1, 3)]:
@@ -571,8 +603,11 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        **{k: row[k] for k in ("one_launch_ms", "serial_ms",
-                                               "rel_err", "row_rel_err")
+                        **{k: row[k] for k in ("one_launch_ms", "slice132_ms",
+                                               "sliced_bound_ms",
+                                               "slice132_bound_ms",
+                                               "serial_ms", "rel_err",
+                                               "row_rel_err")
                            if k in row}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

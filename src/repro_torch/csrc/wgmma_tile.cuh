@@ -1,0 +1,423 @@
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels:
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
+// instructions themselves, and the one-CTA (128 x 128) bf16 output tile that
+// K1 (sliced_matmul.cu) runs and K2 can adopt. flash_attention.cu uses the
+// same primitives for its own loop.
+//
+// The tile: C[128 x 128] = A[128 x K] @ B[K x 128], bf16 in, f32 accumulate,
+// bf16 out. 288 threads: warps 0-7 are two consumer warpgroups, each issuing
+// wgmma.m64n128k16 for one 64-row half of the tile; warp 8 is the producer,
+// whose lane 0 keeps a ring of STAGES (128 x 64 A, 64 x 128 B) stages filled
+// by TMA, with one "full" mbarrier (TMA byte count) and one "empty" mbarrier
+// (eight consumer warps arrive) per stage. A is (M, K) row-major, so K-major;
+// B is (K, N) row-major, so MN-major, read by wgmma with its transpose bit.
+// Both land in shared memory in TMA's 128-byte swizzle, which the
+// descriptors name. A consumer keeps one wgmma group in flight: it releases a
+// stage after the next stage's products are issued. The sum over K runs in
+// one fixed order inside the CTA, so a tile's bits depend on nothing outside
+// its own CTA.
+//
+// Built with plain nvcc for sm_90a; <cuda.h> is read for the CUtensorMap
+// types only: cuTensorMapEncodeTiled is reached through the runtime's
+// driver entry point, so nothing links against libcuda.
+#pragma once
+
+#include <cuda.h>
+
+#include <cstring>
+
+#include "common.cuh"
+
+namespace repro {
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Dynamic shared memory rounded up to 1024 bytes, the period of the 128-byte
+// swizzle (and a multiple of the 64-byte swizzle's 512); kernels ask for
+// 1024 bytes more than they use.
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return raw + pad;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also tells the barrier how many bytes TMA will deliver.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. The loop is
+// inside one asm statement, as CUTLASS writes it, so a warp leaves it
+// converged for the .aligned wgmma instructions that follow.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+constexpr uint64_t SWIZZLE_128B = 1;  // descriptor layout types (bits 62-63)
+constexpr uint64_t SWIZZLE_64B = 2;
+
+// Shared-memory matrix descriptor. For a K-major operand in a swizzled
+// layout, sbo is the stride between 8-row groups and lbo is unused; for an
+// MN-major one, lbo is the stride between swizzle atoms along MN and sbo the
+// stride between 8-row groups along K. All in bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Two f32 values as one register of two bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, sizeof r);
+  return r;
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate. "ss": A and B from
+// shared memory by descriptor; "rs": A from registers. "_tb": B is MN-major
+// (transpose bit set). d holds N / 2 accumulators a thread; scale_d = 0
+// overwrites d instead of adding to it.
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96_tb(float (&d)[48], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_rs_n32_tb(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64_tb(d, a, db, scale_d);
+  else if constexpr (N == 96) wgmma_rs_n96_tb(d, a, db, scale_d);
+  else wgmma_rs_n128_tb(d, a, db, scale_d);
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+// Encodes a bf16 tensor map of `rank` dimensions (innermost first; strides in
+// bytes for dimensions 1..rank-1), out-of-range elements read as zero.
+// Returns 0 or a cudaError_t.
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box,
+                           CUtensorMapSwizzle swizzle) {
+  using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static EncodeFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeFn>(fn);
+  }
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+                              const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// The one-CTA (128 x 128) bf16 tile
+// ---------------------------------------------------------------------------
+constexpr int TILE_BM = 128;
+constexpr int TILE_BN = 128;
+constexpr int TILE_BK = 64;   // K per stage: one 128-byte swizzle row of A
+constexpr int TILE_STAGES = 4;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int TILE_THREADS_WG = 32 * (CONSUMER_WARPS + 1);
+constexpr uint32_t A_STAGE_BYTES = TILE_BM * TILE_BK * 2;   // one TMA box
+constexpr uint32_t B_HALF_BYTES = TILE_BK * 64 * 2;         // one TMA box: 64 of B's 128 columns
+constexpr uint32_t STAGE_BYTES = A_STAGE_BYTES + 2 * B_HALF_BYTES;
+constexpr size_t TILE_SMEM_BYTES = TILE_STAGES * STAGE_BYTES + 16 * TILE_STAGES + 1024;
+
+// Maps for the tile: A (m, k) in (128 x 64) boxes, B (k, n) in (64 x 64)
+// boxes, both 128-byte swizzled.
+inline int encode_tile_maps(CUtensorMap* map_a, CUtensorMap* map_b, const void* a, const void* b,
+                            int m, int n, int k) {
+  const cuuint64_t dims_a[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides_a[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t box_a[2] = {TILE_BK, TILE_BM};
+  int err = encode_bf16_map(map_a, a, 2, dims_a, strides_a, box_a, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const cuuint64_t dims_b[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides_b[1] = {static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t box_b[2] = {64, TILE_BK};
+  return encode_bf16_map(map_b, b, 2, dims_b, strides_b, box_b, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Output tile (ti, tj) of C = A @ B; every thread of the CTA calls it, with
+// TILE_SMEM_BYTES of dynamic shared memory. k is a multiple of TILE_BK.
+__device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
+                                                  const CUtensorMap* map_b,
+                                                  __nv_bfloat16* __restrict__ C, int n, int k,
+                                                  int ti, int tj, uint8_t* smem_raw) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t base = smem_u32(align_smem(smem_raw));
+  const uint32_t full = base + TILE_STAGES * STAGE_BYTES;  // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * TILE_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TILE_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int kblocks = k / TILE_BK;
+
+  if (warp == CONSUMER_WARPS) {  // producer
+    if (lane == 0) {
+      for (int kb = 0; kb < kblocks; ++kb) {
+        const int s = kb % TILE_STAGES;
+        if (kb >= TILE_STAGES) mbar_wait(empty + 8 * s, ((kb / TILE_STAGES) - 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t sa = base + s * STAGE_BYTES;
+        const uint32_t sb = sa + A_STAGE_BYTES;
+        mbar_expect_tx(bar, STAGE_BYTES);
+        tma_load_2d(sa, map_a, bar, kb * TILE_BK, ti * TILE_BM);
+        tma_load_2d(sb, map_b, bar, tj * TILE_BN, kb * TILE_BK);
+        tma_load_2d(sb + B_HALF_BYTES, map_b, bar, tj * TILE_BN + 64, kb * TILE_BK);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;  // consumer warpgroup: rows 64 wg .. 64 wg + 63
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < kblocks; ++kb) {
+    const int s = kb % TILE_STAGES;
+    mbar_wait(full + 8 * s, (kb / TILE_STAGES) & 1);
+    const uint32_t sa = base + s * STAGE_BYTES + wg * 64 * 128;  // 128 bytes per A row
+    const uint32_t sb = base + s * STAGE_BYTES + A_STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_BK / 16; ++kk) {
+      // A: 16 k = 32 bytes along the swizzled row; B: 16 k = 16 rows of 128 bytes
+      wgmma_ss_n128_tb(acc, make_desc(sa + 32 * kk, 16, 1024, SWIZZLE_128B),
+                       make_desc(sb + 2048 * kk, B_HALF_BYTES, 1024, SWIZZLE_128B), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % TILE_STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
+  // and + 8; register 4 j + e of column block j is column 8 j + 2 (lane % 4)
+  // + (e & 1), row + 8 for e >= 2
+  const int row = ti * TILE_BM + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int col = tj * TILE_BN + 2 * (lane % 4);
+  __nv_bfloat16* c0 = C + static_cast<size_t>(row) * n + col;
+  __nv_bfloat16* c1 = c0 + static_cast<size_t>(8) * n;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(c1 + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+}  // namespace sm90
+}  // namespace repro

@@ -100,12 +100,17 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
-def check(name: str, err: int) -> None:
-    """Raise if the launch returned a CUDA error; else count the launch."""
+def raise_on(name: str, err: int, what: str = "kernel launch") -> None:
+    """Raise if a call into the library returned a CUDA error."""
     if err != 0:
         msg = getattr(_LIBS[name], f"{name}_strerror")(err)
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{name}: {what} failed with CUDA error "
                            f"{err} ({msg.decode() if msg else '?'})")
+
+
+def check(name: str, err: int) -> None:
+    """Raise if the launch returned a CUDA error; else count the launch."""
+    raise_on(name, err)
     LAUNCHES[name] += 1
 
 

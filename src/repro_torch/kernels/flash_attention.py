@@ -1,16 +1,18 @@
 """K3 on Hopper: causal (or full) flash attention with online softmax.
 
 Replaces ``flash_attention`` of ``repro/kernels/flash_attention.py`` (the
-``pl.pallas_call`` at :67). The CUDA kernel is ``csrc/flash_attention.cu``:
-one CTA per (batch*head, 64-row q tile), looping over KV tiles only up to
-the diagonal when causal, with f32 m/l/acc in registers and the reference's
-mask constant and final division. The plain version is
+``pl.pallas_call`` at :67). The CUDA kernel is ``csrc/flash_attention.cu``,
+one launch per call, looping over KV tiles only up to the diagonal when
+causal, with f32 m/l/acc in registers and the reference's mask constant and
+final division. The dtype alone picks the path: bf16 runs ``wgmma`` on the
+tensor cores (128-row q tiles, 64-key K/V tiles in a TMA ring), f32 runs FMA
+on the CUDA cores (64-row q tiles). The plain version is
 ``repro_torch.kernels.ref.flash_attention``;
 ``repro_torch.kernels.ops.flash_attention`` picks between the two by device.
 
 Bound on an H100 SXM (data-sheet peaks at its 700 W limit) at
-(1, 32, 2048, 96) bf16 causal: 25.8 GFLOP over 989 TFLOP/s, ~26 us a call.
-The first kernel runs f32 FMA, far from it (see PERF.md).
+(1, 32, 2048, 96) bf16 causal: 25.8 GFLOP over 989 TFLOP/s, ~26 us a call
+(see PERF.md for the kernel's time).
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ def check_shapes(q, k, v, bq: int, bk: int) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """(B, H, S, D) -> (B, H, S, D) on the card. The kernel's own tiles are
-    64 x 64 with the ragged edge masked, so it takes any S."""
+    """(B, H, S, D) -> (B, H, S, D) on the card. The kernel masks the
+    ragged edge of its own tiles, so it takes any S."""
     _build.require_cuda("flash_attention", q, k, v)
     b, h, s, d = q.shape
     if d not in HEAD_DIMS:

@@ -40,6 +40,7 @@ from repro_torch.core.profiles import (TPU_V5E, KernelProfile,
                                        tpu_profile_from_costs)
 from repro_torch.core.simulator import IPCTable
 from repro_torch.data.synthetic import make_batch, poisson_arrivals
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 
 
@@ -51,16 +52,6 @@ class Job:
     num_slices: int             # microbatch slices pending
     batch_per_slice: int = 2
     seq: int = 64
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller asks for another device; a CUDA device
-    that is not there raises instead of running on the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                           "the CPU")
-    return dev
 
 
 class SharedPodServer:

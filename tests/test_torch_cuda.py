@@ -52,13 +52,72 @@ def test_kernels_match_plain(cuda, dtype):
 
 
 def test_sliced_matmul_is_bitwise_equal_across_slice_sizes(cuda):
+    """192 tiles: slice size 132 leaves a ragged last launch of 60."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    a = torch.randn(1024, 512, generator=gen, device=cuda).bfloat16()
-    b = torch.randn(512, 768, generator=gen, device=cuda).bfloat16()
-    whole = torch.empty(1024, 768, dtype=a.dtype, device=cuda)
-    SM.matmul_slice(a, b, whole, offset=0, slice_size=8 * 6)
-    for ss in (1, 3, 4):
+    a = torch.randn(2048, 512, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(512, 1536, generator=gen, device=cuda).bfloat16()
+    whole = torch.empty(2048, 1536, dtype=a.dtype, device=cuda)
+    SM.matmul_slice(a, b, whole, offset=0, slice_size=16 * 12)
+    for ss in (1, 3, 4, 132):
         assert torch.equal(ops.sliced_matmul(a, b, slice_size=ss), whole)
+
+
+@pytest.mark.parametrize("slice_size", [4, 132])
+def test_sliced_matmul_bf16_matches_plain(cuda, slice_size):
+    """The tensor-core path at 2560 x 1536 (K 1024): 240 tiles, which 132
+    does not divide."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(2560, 1024, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(1024, 1536, generator=gen, device=cuda).bfloat16()
+    torch.testing.assert_close(ops.sliced_matmul(a, b, slice_size=slice_size),
+                               ref.matmul(a, b), **TOL[torch.bfloat16])
+
+
+def test_sliced_matmul_bf16_takes_whole_stages_of_k(cuda):
+    """bf16 stages K 64 at a time: K = 96 is refused, not cut."""
+    a = torch.zeros(128, 96, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(96, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stages K"):
+        ops.sliced_matmul(a, b, bk=32)
+
+
+@pytest.mark.parametrize("s", [1, 100, 200, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_attention_bf16_matches_plain(cuda, d, causal, s):
+    """The tensor-core path for every head dim, causal and full; S = 1, 100
+    and 200 leave ragged q and key tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (1, 2, s, d) if s == 2048 else (2, 3, s, d)
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=causal, bq=s, bk=s),
+        ref.flash_attention(q, k, v, causal=causal), **TOL[torch.bfloat16])
+
+
+def test_bf16_runs_on_the_tensor_cores(cuda):
+    """A bf16 call of K1 and of K3 runs the wgmma kernels and not the FMA
+    ones, which only f32 reaches."""
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.randn(256, 256, device=cuda).bfloat16()
+    q = torch.randn(1, 2, 256, 96, device=cuda).bfloat16()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.sliced_matmul(a, a)
+        ops.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert "sliced_matmul_wgmma_kernel" in names, names
+    assert "flash_fwd_wgmma_kernel" in names, names
+    assert "sliced_matmul_kernel" not in names, names
+    assert "flash_fwd_kernel" not in names, names
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.sliced_matmul(a.float(), a.float())
+        ops.flash_attention(q.float(), q.float(), q.float())
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert "sliced_matmul_kernel" in names and "flash_fwd_kernel" in names
+    assert "wgmma" not in names, names
 
 
 def test_server_drains_through_the_kernels(cuda):

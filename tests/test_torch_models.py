@@ -36,7 +36,8 @@ def close(got, want, atol):
 def model(request):
     cfg = reduced(get_config(request.param))
     jp = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return cfg, reduced(tconfigs.get_config(request.param)), jp, tp
 
 
@@ -172,7 +173,8 @@ def test_params_layout_and_init():
     jp = JT.init_params(cfg, jax.random.PRNGKey(0))
     gen = torch.Generator().manual_seed(0)
     tp = T.init_params(tcfg, gen, device="cpu")
-    conv = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    conv = params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     flat_t = jax.tree_util.tree_flatten_with_path(
         jax.tree_util.tree_map(lambda a: (tuple(a.shape), a.dtype), tp))
     flat_c = jax.tree_util.tree_flatten_with_path(
@@ -192,3 +194,13 @@ def test_other_block_kinds_name_their_roadmap_item(arch, reason):
     with pytest.raises(NotImplementedError, match=reason):
         T.init_params(reduced(tconfigs.get_config(arch)),
                       torch.Generator(), device="cpu")
+
+
+def test_params_from_jax_defaults_to_cuda(monkeypatch):
+    """Like the port's other entry points, the conversion runs on ``cuda``
+    unless the caller passes ``device="cpu"``, and raises with no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree)
+    assert params_from_jax(tree, device="cpu")["w"].device.type == "cpu"

@@ -169,7 +169,7 @@ def _weights(init, cfg, seed):
         if not a.any() else a,
         jax.tree_util.tree_map(np.asarray, init(
             jax.random.PRNGKey(seed), cfg, cfg.num_layers, jnp.float32)))
-    return jp, params_from_jax(jp)
+    return jp, params_from_jax(jp, device="cpu")
 
 
 @pytest.mark.parametrize("carried", [False, True])
@@ -254,7 +254,8 @@ def test_rglru_forward_matches_reference(seq):
 def model(request):
     cfg = reduced(get_config(request.param))
     jp = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return cfg, reduced(tconfigs.get_config(request.param)), jp, tp
 
 
@@ -306,7 +307,8 @@ def test_local_ring_wraps_like_the_reference():
     tcfg = dataclasses.replace(
         reduced(tconfigs.get_config("recurrentgemma-9b")), local_window=8)
     jp = JT.init_params(cfg, jax.random.PRNGKey(1), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     _decode_run(cfg, tcfg, jp, tp)
 
 
@@ -318,7 +320,8 @@ def test_params_layout_and_init(arch):
     jp = JT.init_params(cfg, jax.random.PRNGKey(0))
     tp = T.init_params(reduced(tconfigs.get_config(arch)),
                        torch.Generator().manual_seed(0), device="cpu")
-    conv = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    conv = params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
     def layout(tree):
         return jax.tree_util.tree_flatten_with_path(jax.tree_util.tree_map(

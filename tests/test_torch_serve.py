@@ -27,7 +27,8 @@ def _jax_weights(arch):
     """The reference server's weights: init_params of the reduced config
     from PRNGKey(seed=0), as numpy, in the port's layout."""
     jp = JT.init_params(reduced(get_config(arch)), jax.random.PRNGKey(0))
-    return params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    return params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
