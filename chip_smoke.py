@@ -12,8 +12,12 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
      (2a-2c: K3, K1, K2; K1 at slice sizes 4 and 132 and as one launch,
-     each beside its bound at that slice size; 2d: K4 rwkv6_scan, from zero
-     and from a given state; 2e: K5 rg_lru, from zero and from h0);
+     each beside its bound at that slice size; K2's occupancy, fused,
+     matmul-alone and stream-alone times, and from one traced launch the
+     share of stream time spent beside a matmul CTA on the same SM; 2d: K4
+     rwkv6_scan, from zero and from a given state overwritten in place, at
+     a ragged S and at an extreme decay, with each pass's device time; 2e:
+     K5 rg_lru, from zero and from h0);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -56,11 +60,19 @@ K3_REL_TOL = 1e-2
 # the same bf16 inputs and differ only in summation order.
 K4_REL_TOL = 1e-3
 # the __global__ functions of csrc/*.cu, to find them in a profile: the
-# tensor-core paths of K1 and K3 (bf16) and their FMA paths (f32)
+# tensor-core paths of K1, K2 and K3 (bf16) and their FMA paths (f32), K4's
+# two passes and K5
 KERNEL_SYMBOLS = ("sliced_matmul_wgmma_kernel", "sliced_matmul_kernel",
-                  "coschedule_kernel", "flash_fwd_wgmma_kernel",
-                  "flash_fwd_kernel", "wkv6_kernel", "rg_lru_kernel")
+                  "coschedule_wgmma_kernel", "coschedule_kernel",
+                  "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                  "wkv6_states_kernel", "wkv6_out_kernel", "rg_lru_kernel")
+K4_KERNELS = ("wkv6_states_kernel", "wkv6_out_kernel")
 SMS = 132                                 # H100 SXM streaming multiprocessors
+# the kernels' times before their redesign, at the same shapes, printed
+# beside this run's (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): K2
+# on its FMA tile, K4 as one CTA per (b, h)
+EARLIER_MS = {"coschedule": dict(fused=42.174, matmul=40.887, stream=1.062),
+              "rwkv6_scan": 1.7817}
 
 
 def log(msg: str) -> None:
@@ -112,6 +124,113 @@ def sliced_bound_ms(tiles: int, slice_size: int, tile_flops: float,
     return launches * waves * 1e3 * tile_flops / (PEAK_FLOPS[dtype] / SMS)
 
 
+def wkv6_work(b: int, s: int, h: int, n: int, rkv_bytes: int,
+              c: int = 32):
+    """K4's work at (b, s, h, n) with r/k/v of ``rkv_bytes`` each: (product
+    FLOPs, other FLOPs, bytes). A chunk of c tokens does 4cn^2 in the
+    inter-chunk product and state update and c^2 n in att @ v (products),
+    2.5 c^2 n in the scores' decays and sums and 10 cn in the cumsum,
+    decays and bonus; bytes read r, k, v, w_log, u and the state once and
+    write out and the state once."""
+    chunks = math.ceil(s / c) * b * h
+    products = (4 * c * n * n + c * c * n) * chunks
+    other = (2.5 * c * c * n + 10 * c * n) * chunks
+    nbytes = (3 * rkv_bytes + 2 * 4) * b * s * h * n + 4 * h * n \
+        + 2 * 4 * b * h * n * n
+    return products, other, nbytes
+
+
+def wkv6_bound_ms(products: float, other: float, nbytes: float):
+    """K4's least time: the products on the tensor cores, each f32 product
+    as three bf16 products (high and low parts), the rest on the CUDA cores
+    in f32, against the bytes. (ms, 'operations' | 'bytes')."""
+    t_ops = 3 * products / PEAK_FLOPS["bfloat16"] + \
+        other / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def wkv6_pass_bytes(b: int, s: int, h: int, n: int, rkv_bytes: int,
+                    c: int = 32):
+    """What K4's two passes move through device memory: (total, scratch).
+    Pass 1 reads k, v, w_log and the state and writes the state entering
+    every chunk (the scratch) and the final state; pass 2 reads r, k, v,
+    w_log, u and the scratch and writes out."""
+    tokens = b * s * h * n
+    scratch = 4 * b * h * math.ceil(s / c) * n * n
+    state = 4 * b * h * n * n
+    pass1 = (2 * rkv_bytes + 4) * tokens + 2 * state + scratch
+    pass2 = (3 * rkv_bytes + 4 + 4) * tokens + 4 * h * n + scratch
+    return pass1 + pass2, 2 * scratch
+
+
+def trace_report(trace) -> dict:
+    """From K2's trace rows (SM, start ns, end ns, op): the share of stream
+    CTAs' time during which a matmul CTA ran on the same SM (``share``), the
+    share of stream CTAs that met one at all (``met``), the SMs that ran a
+    stream CTA (``stream_sms``), when the last stream CTA ended after the
+    launch's first start (``stream_end_us``), the mean stream CTA's time
+    (``stream_us``) and matmul CTA's time before and after that
+    (``mm_us_during``, ``mm_us_after``), the most stream CTAs resident at
+    once (``peak_stream``), the matmul CTAs resident on average while
+    stream CTAs ran (``mm_resident_during``), and the matmul and stream
+    CTAs resident at a quarter, half and three quarters of the launch
+    (``resident``, (matmul, stream) each)."""
+    t_first = min(int(row[1]) for row in trace)
+    rows = [(int(sm), int(t0) - t_first, int(t1) - t_first, int(op))
+            for sm, t0, t1, op in trace]
+    by_sm: dict = {}
+    for sm, t0, t1, op in rows:
+        by_sm.setdefault(sm, ([], []))[op].append((t0, t1))
+    stream_ns = overlap_ns = met = n_stream = 0
+    for mm, st in by_sm.values():
+        merged = []
+        for t0, t1 in sorted(mm):
+            if merged and t0 <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], t1)
+            else:
+                merged.append([t0, t1])
+        for t0, t1 in st:
+            seen = sum(max(0, min(t1, m1) - max(t0, m0)) for m0, m1 in merged)
+            stream_ns += t1 - t0
+            overlap_ns += seen
+            met += seen > 0
+            n_stream += 1
+    end = max(t1 for _, _, t1, _ in rows)
+    st_end = max((t1 for _, _, t1, op in rows if op == 1), default=0)
+
+    def mean_us(durs):
+        return sum(durs) / len(durs) / 1e3 if durs else 0.0
+
+    live = peak = 0
+    for _, step in sorted((t, step) for _, t0, t1, op in rows if op == 1
+                          for t, step in ((t0, 1), (t1, -1))):
+        live += step
+        peak = max(peak, live)
+    mm_ns_during = sum(max(0, min(t1, st_end) - t0)
+                       for _, t0, t1, op in rows if op == 0)
+    resident = []
+    for frac in (0.25, 0.5, 0.75):
+        t = frac * end
+        live = [op for _, t0, t1, op in rows if t0 <= t < t1]
+        resident.append((live.count(0), live.count(1)))
+    return dict(
+        share=overlap_ns / stream_ns if stream_ns else 0.0,
+        met=met / n_stream if n_stream else 0.0,
+        stream_sms=sum(1 for _, st in by_sm.values() if st),
+        stream_end_us=st_end / 1e3,
+        stream_us=mean_us([t1 - t0 for _, t0, t1, op in rows if op == 1]),
+        peak_stream=peak,
+        mm_resident_during=mm_ns_during / st_end if st_end else 0.0,
+        mm_us_during=mean_us([t1 - t0 for _, t0, t1, op in rows
+                              if op == 0 and t0 < st_end]),
+        mm_us_after=mean_us([t1 - t0 for _, t0, t1, op in rows
+                             if op == 0 and t0 >= st_end]),
+        resident=resident)
+
+
 def max_err(torch, got, want, tol) -> float:
     err = float((got.float() - want.float()).abs().max())
     ok = torch.allclose(got.float(), want.float(), **tol)
@@ -135,12 +254,12 @@ def prefill_runs(rounds, name) -> int:
                    for k1, k2, n1, n2, _ in rounds)
 
 
-def drain_report(torch, srv, res, label: str) -> None:
+def drain_report(torch, srv, res, label: str) -> dict:
     """Print a drain's rounds, each job's step timed alone, the serial sum
     against the first and a warm drain of the same slices, and each step's
     top device kernels. The first drain was the first on its streams (their
     allocator pools start empty); a second drain of the same slices is the
-    warm one."""
+    warm one. Returns each job's device kernel names from its profile."""
     rounds = res["rounds"]
     for k1, k2, n1, n2, cp in rounds:
         log(f"[{label}] round {k1} x {k2}: slices {n1}:{n2}, v5e-model "
@@ -163,12 +282,14 @@ def drain_report(torch, srv, res, label: str) -> None:
         f" warm {warm['wall_s']:.4f} (drain/serial "
         f"{warm['wall_s'] / serial_s:.4f})")
     from torch.profiler import ProfilerActivity, profile
+    seen = {}
     for name in srv.jobs:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             srv._exec[name]()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen[name] = [e.key for e in evs]
         total = sum(e.self_device_time_total for e in evs)
         assert total > 0, f"{name}: the profiler saw no device time"
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
@@ -181,6 +302,7 @@ def drain_report(torch, srv, res, label: str) -> None:
                           f" ms x{e.count} "
                           f"({e.self_device_time_total / total:.1%})"
                           for e in ours) or "none"))
+    return seen
 
 
 def main() -> int:
@@ -199,6 +321,7 @@ def main() -> int:
     from repro_torch.core.profiles import C2050
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import coschedule as CS
+    from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.kernels import sliced_matmul as SM
     from repro_torch.launch.serve import Job, SharedPodServer
     from repro_torch.models import recurrent as R
@@ -323,6 +446,12 @@ def main() -> int:
         f" at {SMS}; plain {plain:.3f} ms, torch.matmul {lib:.3f} ms")
 
     # ---- phase 2c: K2 coschedule ----------------------------------------
+    occ = CS.occupancy()
+    assert occ >= 2, f"bf16 K2 holds {occ} CTA an SM; a stream CTA cannot " \
+        "sit beside a matmul CTA"
+    log(f"[K2 occupancy] coschedule_wgmma_kernel: {occ} CTAs an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, 288 threads, "
+        f"3-stage ring)")
     for run_a, run_b in [(1, 1), (2, 1), (1, 3)]:
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             a2, b2 = randn((256, 128), dt), randn((128, 256), dt)
@@ -346,30 +475,76 @@ def main() -> int:
               max_err(torch, st, st_want, BF16_TOL))
     del mm, st
     n_a, n_b = (n // 128) ** 2, 65536 // 256
-    ms = time_ms(torch, lambda: ops.coschedule(a, bm, x, run_a=run_a,
-                                               run_b=run_b), 3)
-    mm_only = time_ms(torch, lambda: CS.launch(
-        a, bm, x, CS.make_schedule(n_a, 0), scale=2.0, bx=256), 3)
-    st_only = time_ms(torch, lambda: CS.launch(
-        a, bm, x, CS.make_schedule(0, n_b), scale=2.0, bx=256), 3)
+    # the schedules on the card once, so that the times are the kernel's
+    # alone (ops.coschedule builds its schedule on the host every call)
+    scheds = {"fused": CS.make_schedule(n_a, n_b, run_a, run_b),
+              "matmul": CS.make_schedule(n_a, 0),
+              "stream": CS.make_schedule(0, n_b)}
+    sched_dev = {k: CS.schedule_tensor(v, dev) for k, v in scheds.items()}
+    k2_ms = {k: [] for k in scheds}
+    for order in (("fused", "matmul", "stream"), ("stream", "matmul", "fused")):
+        for k in order:
+            k2_ms[k].append(time_ms(torch, lambda: CS.launch(
+                a, bm, x, sched_dev[k], scale=2.0, bx=256), 5))
+    ms, mm_only, st_only = (sum(k2_ms[k]) / 2 for k in
+                            ("fused", "matmul", "stream"))
+    call_ms = time_ms(torch, lambda: ops.coschedule(a, bm, x, run_a=run_a,
+                                                    run_b=run_b), 3)
+    traced = {}
+    for k in ("fused", "matmul"):
+        trace = torch.zeros(len(scheds[k][0]), 4, dtype=torch.int64,
+                            device=dev)
+        CS.launch(a, bm, x, sched_dev[k], scale=2.0, bx=256, trace=trace)
+        torch.cuda.synchronize()
+        traced[k] = trace_report(trace.cpu().tolist())
+    ov = traced["fused"]
     plain = time_ms(torch, lambda: ref.coschedule(a, bm, x, 2.0), 3)
     st_bytes = 2 * x.numel() * x.element_size()
     b_ms, b_by = bound(2.0 * n ** 3 + x.numel(), 3 * n * n * 2 + st_bytes,
                        "bfloat16")
     serial_bound = (bound(2.0 * n ** 3, 3 * n * n * 2, "bfloat16")[0]
                     + 1e3 * st_bytes / HBM_BYTES_PER_S)
+    serial = mm_only + st_only
     rows["coschedule"] = dict(
         source="src/repro_torch/csrc/coschedule.cu",
         replaces="src/repro/kernels/coschedule.py:73", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        serial_ms=mm_only + st_only)
+        serial_ms=serial, matmul_ms=mm_only, stream_ms=st_only,
+        fused_over_serial=ms / serial, overlap_share=ov["share"],
+        occupancy=occ)
+    rows["coschedule"].update(
+        stream_end_us=ov["stream_end_us"], stream_us=ov["stream_us"],
+        peak_stream=ov["peak_stream"],
+        mm_resident_during=ov["mm_resident_during"],
+        mm_us_during=ov["mm_us_during"],
+        mm_us_after=ov["mm_us_after"],
+        mm_us_alone=traced["matmul"]["mm_us_after"])
+    before = EARLIER_MS["coschedule"]
     log(f"[K2] 8192^3 + 65536x8192 bf16, runs {run_a}:{run_b} from "
         f"balanced_slice_sizes (s1={s1}, s2={s2}): err {err:.3e} "
-        f"(tol atol=rtol=2e-2) fused {ms:.3f} ms, matmul alone "
-        f"{mm_only:.3f} ms + stream alone {st_only:.3f} ms = serial "
-        f"{mm_only + st_only:.3f} ms (fused/serial "
-        f"{ms / (mm_only + st_only):.4f}), plain {plain:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}; serial bound {serial_bound:.4f} ms)")
+        f"(tol atol=rtol=2e-2); fused {ms:.4f} ms (on the FMA tile: "
+        f"{before['fused']}), matmul alone {mm_only:.4f} ms (FMA: "
+        f"{before['matmul']}), stream alone {st_only:.4f} ms (FMA kernel: "
+        f"{before['stream']}), serial {serial:.4f} ms, fused/serial "
+        f"{ms / serial:.4f}; each the mean of two turns "
+        f"(fused/matmul/stream: {k2_ms['fused']}, {k2_ms['matmul']}, "
+        f"{k2_ms['stream']}); ops.coschedule per call, schedule built on "
+        f"the host, {call_ms:.4f} ms; plain {plain:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}; serial bound {serial_bound:.4f} ms, the "
+        f"stream's {1e3 * st_bytes / HBM_BYTES_PER_S:.4f} ms)")
+    log(f"[K2 trace] one traced fused launch: stream CTAs spent "
+        f"{ov['share']:.4f} of their time beside a matmul CTA on the same "
+        f"SM; {ov['met']:.4f} of them met one at all; stream CTAs ran on "
+        f"{ov['stream_sms']} SMs, {ov['stream_us']:.1f} us each on average, "
+        f"at most {ov['peak_stream']} at once, and the last ended at "
+        f"{ov['stream_end_us']:.1f} us, while {ov['mm_resident_during']:.1f} "
+        f"matmul CTAs were resident on average (of {SMS} SMs x {occ}); "
+        f"resident (matmul, stream) CTAs at 1/4, 1/2, 3/4 of the launch: "
+        f"{ov['resident']}; a matmul CTA took "
+        f"{ov['mm_us_during']:.1f} us while stream CTAs ran and "
+        f"{ov['mm_us_after']:.1f} us after, against "
+        f"{traced['matmul']['mm_us_after']:.1f} us in a traced matmul-alone "
+        f"launch")
 
     # ---- phase 2d: K4 rwkv6_scan -----------------------------------------
     def wkv_inputs(b, s, h, n, dt):
@@ -377,7 +552,9 @@ def main() -> int:
         w_log = -torch.exp(randn((b, s, h, n), torch.float32) - 1.0)
         return r, k, v, w_log, randn((h, n), torch.float32) * 0.1
 
-    for (b, s, h, n, chunk) in [(2, 64, 2, 32, 16), (1, 128, 4, 64, 32)]:
+    # S = 80 and 37 leave a ragged last chunk of the kernels' own 32
+    for (b, s, h, n, chunk) in [(2, 64, 2, 32, 16), (1, 128, 4, 64, 32),
+                                (2, 80, 2, 64, 16), (1, 37, 3, 32, 37)]:
         for dt in (torch.float32, torch.bfloat16):
             tol = K4_TOL[str(dt).split(".")[-1]]
             r, k, v, w_log, u = wkv_inputs(b, s, h, n, dt)
@@ -391,13 +568,28 @@ def main() -> int:
             err_s = max(max_err(torch, got, want, tol),
                         max_err(torch, state, want_s, tol))
             log(f"[K4 grid] {(b, s, h, n)} chunk {chunk} {dt} err {err:.3e}; "
-                f"from a given state: out and final state err {err_s:.3e}")
+                f"from a given state, overwritten in place: out and final "
+                f"state err {err_s:.3e}")
+    # a log decay of -4 a step (tests/test_torch_recurrent.py's seed-24
+    # case): the exponent above the diagonal would reach 4 * 31
+    for n in WKV.HEAD_DIMS:
+        r, k, v, _, u = wkv_inputs(1, 64, 2, n, torch.float32)
+        w_log = torch.full_like(r, -4.0)
+        s0 = randn((1, 2, n, n), torch.float32)
+        state = s0.clone()
+        got = ops.rwkv6_scan(r, k, v, w_log, u, state=state)
+        want, want_s = ref.rwkv6(r, k, v, w_log, u, s0)
+        assert bool(torch.isfinite(got).all()), "K4 went non-finite"
+        err = max(max_err(torch, got, want, K4_TOL["float32"]),
+                  max_err(torch, state, want_s, K4_TOL["float32"]))
+        log(f"[K4 decay] (1, 64, 2, {n}) f32, w_log = -4 a step, from a "
+            f"given state: finite, out and final state err {err:.3e}")
     shape = (4, 2048, 32, 64)
     b, s, h, n = shape
     r, k, v, w_log, u = wkv_inputs(b, s, h, n, torch.bfloat16)
     s0 = randn((b, h, n, n), torch.float32)
     zeros = torch.zeros(b, h, n, n, device=dev)
-    k4_errs = []
+    k4_errs, k4_rel = [], []
     for init in (zeros, s0):      # the main path's zero state, then a given one
         state = init.clone()
         got = ops.rwkv6_scan(r, k, v, w_log, u, state=state)
@@ -408,35 +600,53 @@ def main() -> int:
                            max_err(torch, state, want_s, K4_TOL["float32"]),
                            max_err(torch, got, seq, K4_TOL["float32"]),
                            max_err(torch, state, seq_s, K4_TOL["float32"])))
-        rel_whole, rel_row = rel_errs(got, want)
-        assert rel_whole < K4_REL_TOL and rel_row < K4_REL_TOL, \
-            f"K4 relative error {rel_whole:.3e} whole, {rel_row:.3e} worst row"
+        for pair in ((got, want), (state, want_s)):
+            rel_whole, rel_row = rel_errs(*pair)
+            assert rel_whole < K4_REL_TOL and rel_row < K4_REL_TOL, \
+                f"K4 relative error {rel_whole:.3e} whole, {rel_row:.3e} row"
+            k4_rel.append((rel_whole, rel_row))
     del got, want, want_s, seq, seq_s
+    rel_whole = max(x[0] for x in k4_rel)
+    rel_row = max(x[1] for x in k4_rel)
     state = zeros.clone()
     ms = time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w_log, u,
                                                state=state), 20)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.rwkv6_scan(r, k, v, w_log, u, state=state)
+        torch.cuda.synchronize()
+    pass_ms = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                         if name in e.key) / 5e3 for name in K4_KERNELS}
+    assert all(t > 0 for t in pass_ms.values()), pass_ms
     plain = time_ms(torch, lambda: R.rwkv6_chunked(r, k, v, w_log, u, zeros),
                     3)
-    c = 32
-    per_chunk = 4 * c * n * n + 3.5 * c * c * n + 10 * c * n
-    flops = per_chunk * (s // c) * b * h
-    nbytes = (3 * r.numel() * r.element_size() + 2 * 4 * w_log.numel()
-              + 4 * u.numel() + 2 * 4 * zeros.numel())
-    b_ms, b_by = bound(flops, nbytes, "float32")
+    products, other, nbytes = wkv6_work(b, s, h, n, r.element_size())
+    b_ms, b_by = wkv6_bound_ms(products, other, nbytes)
+    f32_ms = bound(products + other, nbytes, "float32")[0]
+    moved, scratch = wkv6_pass_bytes(b, s, h, n, r.element_size())
     rows["rwkv6_scan"] = dict(
         source="src/repro_torch/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:58",
         max_abs_err=max(k4_errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, rel_err=rel_whole,
-        row_rel_err=rel_row)
+        row_rel_err=rel_row, states_ms=pass_ms[K4_KERNELS[0]],
+        out_ms=pass_ms[K4_KERNELS[1]])
     log(f"[K4] {shape} bf16 r/k/v, f32 w/u/state, chunk 32: err "
         f"{max(k4_errs):.3e} (tol atol=rtol=1e-3, against the plain chunked "
         f"version and the sequential oracle, out and final state, from zero "
         f"and from a given state), relative {rel_whole:.3e} whole and "
-        f"{rel_row:.3e} worst row (tol {K4_REL_TOL:g}); kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} "
-        f"GFLOP f32 at 67 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); no "
-        f"one PyTorch call computes it")
+        f"{rel_row:.3e} worst row (tol {K4_REL_TOL:g}); kernel {ms:.4f} ms "
+        f"(one CTA per head: {EARLIER_MS['rwkv6_scan']}), of which pass 1 "
+        f"{pass_ms[K4_KERNELS[0]]:.4f} ms and pass 2 "
+        f"{pass_ms[K4_KERNELS[1]]:.4f} ms (profiler, mean of 5); plain "
+        f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s; {(products + other) / 1e9:.2f} GFLOP, "
+        f"{f32_ms:.4f} ms were it all f32 on the CUDA cores); the two "
+        f"passes move {moved / 1e6:.1f} MB, a floor of "
+        f"{1e3 * moved / HBM_BYTES_PER_S:.4f} ms, the scratch "
+        f"{scratch / 1e6:.1f} MB of it ({scratch / moved:.1%}); no one "
+        f"PyTorch call computes it")
     del r, k, v, w_log, u, s0, zeros, state
 
     # ---- phase 2e: K5 rg_lru ---------------------------------------------
@@ -585,7 +795,10 @@ def main() -> int:
         f"slices, rg_lru launches {rec_launches['rg_lru']} = {n_lru} x "
         f"{runs_e} prefill slices (warm-up included)")
     log(f"[main path] recurrent launches {rec_launches}")
-    drain_report(torch, srv, res, "serve-rec")
+    seen = drain_report(torch, srv, res, "serve-rec")
+    names = " ".join(seen[jobs[0].name])
+    assert all(k in names for k in K4_KERNELS) and "wkv6_kernel" not in names, \
+        f"the RWKV6 prefill step did not run K4's two passes: {names}"
     launches = {name: launches[name] + rec_launches[name]
                 for name in _build.NAMES}
     for name in _build.NAMES:
@@ -606,8 +819,17 @@ def main() -> int:
                         **{k: row[k] for k in ("one_launch_ms", "slice132_ms",
                                                "sliced_bound_ms",
                                                "slice132_bound_ms",
-                                               "serial_ms", "rel_err",
-                                               "row_rel_err")
+                                               "serial_ms", "matmul_ms",
+                                               "stream_ms",
+                                               "fused_over_serial",
+                                               "overlap_share", "occupancy",
+                                               "stream_end_us", "stream_us",
+                                               "peak_stream",
+                                               "mm_resident_during",
+                                               "mm_us_during",
+                                               "mm_us_after", "mm_us_alone",
+                                               "states_ms", "out_ms",
+                                               "rel_err", "row_rel_err")
                            if k in row}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, and the one-CTA (128 x 128) bf16 output tile that
-// K1 (sliced_matmul.cu) runs and K2 can adopt. flash_attention.cu uses the
-// same primitives for its own loop.
+// K1 (sliced_matmul.cu, 4 stages) and K2 (coschedule.cu, 3 stages) run.
+// flash_attention.cu uses the same primitives for its own loop.
 //
 // The tile: C[128 x 128] = A[128 x K] @ B[K x 128], bf16 in, f32 accumulate,
 // bf16 out. 288 threads: warps 0-7 are two consumer warpgroups, each issuing
@@ -320,13 +320,15 @@ inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cu
 constexpr int TILE_BM = 128;
 constexpr int TILE_BN = 128;
 constexpr int TILE_BK = 64;   // K per stage: one 128-byte swizzle row of A
-constexpr int TILE_STAGES = 4;
+constexpr int TILE_STAGES = 4;   // K1's ring depth, the default
 constexpr int CONSUMER_WARPS = 8;
 constexpr int TILE_THREADS_WG = 32 * (CONSUMER_WARPS + 1);
 constexpr uint32_t A_STAGE_BYTES = TILE_BM * TILE_BK * 2;   // one TMA box
 constexpr uint32_t B_HALF_BYTES = TILE_BK * 64 * 2;         // one TMA box: 64 of B's 128 columns
 constexpr uint32_t STAGE_BYTES = A_STAGE_BYTES + 2 * B_HALF_BYTES;
-constexpr size_t TILE_SMEM_BYTES = TILE_STAGES * STAGE_BYTES + 16 * TILE_STAGES + 1024;
+// a ring of `stages`, its full and empty mbarriers, and the 1024 bytes align_smem may skip
+constexpr size_t tile_smem_bytes(int stages) { return stages * STAGE_BYTES + 16 * stages + 1024; }
+constexpr size_t TILE_SMEM_BYTES = tile_smem_bytes(TILE_STAGES);
 
 // Maps for the tile: A (m, k) in (128 x 64) boxes, B (k, n) in (64 x 64)
 // boxes, both 128-byte swizzled.
@@ -344,7 +346,8 @@ inline int encode_tile_maps(CUtensorMap* map_a, CUtensorMap* map_b, const void* 
 }
 
 // Output tile (ti, tj) of C = A @ B; every thread of the CTA calls it, with
-// TILE_SMEM_BYTES of dynamic shared memory. k is a multiple of TILE_BK.
+// tile_smem_bytes(STAGES) of dynamic shared memory. k is a multiple of TILE_BK.
+template <int STAGES = TILE_STAGES>
 __device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
                                                   const CUtensorMap* map_b,
                                                   __nv_bfloat16* __restrict__ C, int n, int k,
@@ -352,10 +355,10 @@ __device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const uint32_t base = smem_u32(align_smem(smem_raw));
-  const uint32_t full = base + TILE_STAGES * STAGE_BYTES;  // full[s] at full + 8 s
-  const uint32_t empty = full + 8 * TILE_STAGES;
+  const uint32_t full = base + STAGES * STAGE_BYTES;  // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * STAGES;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < TILE_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
@@ -367,8 +370,8 @@ __device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
   if (warp == CONSUMER_WARPS) {  // producer
     if (lane == 0) {
       for (int kb = 0; kb < kblocks; ++kb) {
-        const int s = kb % TILE_STAGES;
-        if (kb >= TILE_STAGES) mbar_wait(empty + 8 * s, ((kb / TILE_STAGES) - 1) & 1);
+        const int s = kb % STAGES;
+        if (kb >= STAGES) mbar_wait(empty + 8 * s, ((kb / STAGES) - 1) & 1);
         const uint32_t bar = full + 8 * s;
         const uint32_t sa = base + s * STAGE_BYTES;
         const uint32_t sb = sa + A_STAGE_BYTES;
@@ -386,8 +389,8 @@ __device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   for (int kb = 0; kb < kblocks; ++kb) {
-    const int s = kb % TILE_STAGES;
-    mbar_wait(full + 8 * s, (kb / TILE_STAGES) & 1);
+    const int s = kb % STAGES;
+    mbar_wait(full + 8 * s, (kb / STAGES) & 1);
     const uint32_t sa = base + s * STAGE_BYTES + wg * 64 * 128;  // 128 bytes per A row
     const uint32_t sb = base + s * STAGE_BYTES + A_STAGE_BYTES;
     wgmma_fence();
@@ -399,7 +402,7 @@ __device__ __forceinline__ void wgmma_matmul_tile(const CUtensorMap* map_a,
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
-    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % TILE_STAGES));
+    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % STAGES));
   }
   wgmma_wait<0>();
   fence_regs(acc);

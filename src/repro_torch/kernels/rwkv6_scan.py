@@ -1,32 +1,40 @@
 """K4 on Hopper: chunked WKV6, the RWKV6 time mix, with its state carried.
 
 Replaces ``rwkv6_scan`` of ``repro/kernels/rwkv6_scan.py`` (the
-``pl.pallas_call`` at :72). The CUDA kernel is ``csrc/rwkv6_scan.cu``: one
-CTA per (b, h) walks the chunks in order with the (N x N) f32 state in
-shared memory, and forms the intra-chunk decay only below the diagonal.
-Unlike the TPU kernel it starts from a given state and writes the final
-one, so every multi-token call of the model runs on it. The plain version is
-``repro_torch.models.recurrent.rwkv6_chunked``, the oracle
+``pl.pallas_call`` at :72). The CUDA kernels are in ``csrc/rwkv6_scan.cu``,
+two passes a call: pass 1, one CTA per (b, h, block of value columns), walks
+the chunks in order and writes the state entering each chunk to a scratch
+tensor; pass 2, one CTA per (b, h, chunk), forms each chunk's output from that
+state with no sequential dependence. The chunk's products run on the tensor
+cores with split-precision (bf16 high + low) operands, and no exponent above 0
+is ever formed. Unlike the TPU kernel it starts from a given state and writes
+the final one, so every multi-token call of the model runs on it. The plain
+version is ``repro_torch.models.recurrent.rwkv6_chunked``, the oracle
 ``repro_torch.kernels.ref.rwkv6``; ``repro_torch.kernels.ops.rwkv6_scan``
-picks between kernel and plain version by device.
+picks between kernel and plain version by device. ``two_pass`` repeats the
+kernels' arithmetic in plain PyTorch for the CPU tests.
 
 Bound on an H100 SXM (data-sheet peaks at its 700 W limit) at
-(4, 2048, 32, 64) with bf16 r/k/v: ~7.5 GFLOP of f32 arithmetic over
-67 TFLOP/s, ~0.11 ms a call, above the ~0.07 ms its 235 MB take at
-3.35 TB/s (see PERF.md).
+(4, 2048, 32, 64) with bf16 r/k/v: 239.1 MB of inputs and output at
+3.35 TB/s, 0.0714 ms a call; its 6.34 GFLOP would take 0.0947 ms all in f32 on
+the CUDA cores, but the products run on the tensor cores (see PERF.md).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64)        # template instances in csrc/rwkv6_scan.cu
+CHUNK = 32                  # csrc/rwkv6_scan.cu C: the kernels' own chunk
+SUB = 16                    # csrc/rwkv6_scan.cu SUB: the scores' sub-chunk
+LOG2E = 1.4426950408889634
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 5 + [_P], ctypes.c_int)}
+_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 9 + [_I] * 5 + [_P], ctypes.c_int)}
 
 
 def check_shapes(r, k, v, w_log, u, chunk: int) -> None:
@@ -47,18 +55,22 @@ def check_shapes(r, k, v, w_log, u, chunk: int) -> None:
 
 def _require(r, k, v, w_log, u, state) -> None:
     """r/k/v in one dtype (f32 or bf16), w_log/u/state in f32: the mixed
-    types the model hands over, each checked, none cast."""
+    types the model hands over, each checked, none cast. The kernels copy
+    rows 16 bytes at a time, so every tensor starts 16-byte aligned."""
     _build.require_cuda("rwkv6_scan", r, k, v)
     _build.require_cuda("rwkv6_scan", w_log, u, state)
     if w_log.dtype != torch.float32 or w_log.device != r.device:
         raise ValueError(f"rwkv6_scan: w_log, u and state must be float32 on "
                          f"{r.device}, got {w_log.dtype} on {w_log.device}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w_log, u, state)):
+        raise ValueError("rwkv6_scan: tensors must start 16-byte aligned")
 
 
 def rwkv6_scan(r, k, v, w_log, u, state=None):
     """(B, S, H, N) -> out (B, S, H, N) f32 on the card. ``state``
     ((B, H, N, N) f32) is the initial state and is overwritten with the
-    final one; None starts from zero and keeps no state."""
+    final one; None starts from zero and keeps no state. One call launches
+    both passes and counts once in ``LAUNCHES``."""
     b, s, h, n = r.shape
     if n not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan: head dim {n} not in {HEAD_DIMS}")
@@ -69,12 +81,66 @@ def rwkv6_scan(r, k, v, w_log, u, state=None):
                          f"{tuple(state_out.shape)}")
     _require(r, k, v, w_log, u, state_out)
     out = torch.empty(b, s, h, n, device=r.device)
+    scratch = torch.empty(b, h, math.ceil(s / CHUNK), n, n, device=r.device)
     lib = _build.load("rwkv6_scan", _SIGNATURES)
     with torch.cuda.device(r.device):
         err = lib.rwkv6_scan_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), state.data_ptr() if state is not None else None,
-            out.data_ptr(), state_out.data_ptr(), b, s, h, n,
-            _build.DTYPE_CODES[r.dtype], _build.stream_ptr(r))
+            out.data_ptr(), state_out.data_ptr(), scratch.data_ptr(), b, s,
+            h, n, _build.DTYPE_CODES[r.dtype], _build.stream_ptr(r))
     _build.check("rwkv6_scan", err)
     return out
+
+
+def two_pass(r, k, v, w_log, u, state=None, *, on_exponent=None):
+    """The kernels' arithmetic in plain f32 PyTorch, for the CPU tests:
+    chunks of ``CHUNK`` (a ragged last one padded with zeros), logs in
+    log2 units, the states entering every chunk first (pass 1), then every
+    chunk's output from its state (pass 2), with the intra-chunk scores
+    factored across sub-chunks of ``SUB``. ``on_exponent``, if given, is
+    called with every tensor of exponents before ``exp2`` takes it.
+    Returns (out (B, S, H, N), final state (B, H, N, N))."""
+    b, s, h, n = r.shape
+    nc = math.ceil(s / CHUNK)
+
+    def chunks(x):                       # (B, S, H, N) -> (B, H, nc, C, N)
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, nc * CHUNK - s))
+        return x.reshape(b, nc, CHUNK, h, n).permute(0, 3, 1, 2, 4)
+
+    def exp2(x):
+        if on_exponent is not None:
+            on_exponent(x)
+        return torch.exp2(x)
+
+    rr, kk, vv, ww = map(chunks, (r, k, v, w_log))
+    la = torch.cumsum(ww * LOG2E, dim=3)                  # inclusive
+    lp = torch.nn.functional.pad(la[..., :-1, :], (0, 0, 1, 0))  # la_{i-1}
+    la_end = la[..., -1, :]
+    # pass 1: S_{c+1} = exp(la_end) S_c + kd^T v
+    kd = kk * exp2(la_end[..., None, :] - la)
+    dec = exp2(la_end)
+    s_c = (torch.zeros(b, h, n, n) if state is None else state.float())
+    entering = []
+    for c in range(nc):
+        entering.append(s_c)
+        s_c = dec[:, :, c, :, None] * s_c + \
+            kd[:, :, c].transpose(-1, -2) @ vv[:, :, c]
+    s_prev = torch.stack(entering, dim=2)                 # (B, H, nc, N, N)
+    # pass 2: rd @ S + att @ v + diag v
+    out = (rr * exp2(lp)) @ s_prev
+    lb = la[..., SUB - 1:SUB, :]
+    att = torch.zeros(b, h, nc, CHUNK, CHUNK)
+    q = rr[..., SUB:, :] * exp2(lp[..., SUB:, :] - lb)
+    kp = kk[..., :SUB, :] * exp2(lb - la[..., :SUB, :])
+    att[..., SUB:, :SUB] = q @ kp.transpose(-1, -2)
+    ii, jj = torch.tril_indices(SUB, SUB, -1)             # j < i only
+    for s0 in range(0, CHUNK, SUB):
+        i, j = ii + s0, jj + s0
+        d = exp2(lp[..., i, :] - la[..., j, :])
+        att[..., i, j] = (rr[..., i, :] * kk[..., j, :] * d).sum(-1)
+    out = out + att @ vv
+    diag = (rr * u.float()[None, :, None, None, :] * kk).sum(-1)
+    out = out + diag[..., None] * vv
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, nc * CHUNK, h, n)[:, :s]
+    return out, s_c

@@ -1,8 +1,9 @@
 """The yardsticks ``chip_smoke.py`` holds the kernels' times against: the
-card's least time for the work (``bound``) and the least time of a matmul
-cut into slices (``sliced_bound_ms``). Pure arithmetic from the H100's
-data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
-inside ``main``."""
+card's least time for the work (``bound``), the least time of a matmul cut
+into slices (``sliced_bound_ms``), K4's work and bound (``wkv6_work``,
+``wkv6_bound_ms``, ``wkv6_pass_bytes``), and what ``trace_report`` reads
+from K2's trace. Pure arithmetic from the H100's data-sheet peaks, so it runs on
+the CPU; ``chip_smoke`` imports torch only inside ``main``."""
 import importlib.util
 import math
 import pathlib
@@ -73,3 +74,51 @@ def test_sliced_bound_counts_launches_and_waves(smoke):
     whole = smoke.bound(MM_FLOPS, MM_BYTES, "bfloat16")[0]
     for s in (1, 3, 4, 100, 132, 1000, 4095):
         assert smoke.sliced_bound_ms(TILES, s, TILE_FLOPS, MM_BYTES) >= whole
+
+
+def test_rwkv6_work_at_the_main_shape(smoke):
+    """K4 at (4, 2048, 32, 64) with bf16 r/k/v: 6.34 GFLOP and 239.1 MB;
+    0.0947 ms were all of it f32 on the CUDA cores, 0.0714 ms by the bytes,
+    which bound it once the products run on the tensor cores."""
+    products, other, nbytes = smoke.wkv6_work(4, 2048, 32, 64, 2)
+    assert products + other == pytest.approx(6.342e9, rel=1e-3)
+    assert nbytes == pytest.approx(239.08e6, rel=1e-4)
+    ms, by = smoke.bound(products + other, nbytes, "float32")
+    assert by == "operations" and ms == pytest.approx(0.0947, abs=5e-5)
+    ms, by = smoke.wkv6_bound_ms(products, other, nbytes)
+    assert by == "bytes" and ms == pytest.approx(0.0714, abs=5e-5)
+
+
+def test_rwkv6_two_passes_move_the_scratch_twice(smoke):
+    """The passes' traffic: 641.7 MB, a 0.1916 ms floor, of which the
+    (B, H, 64, N, N) f32 scratch, written once and read once, is 268.4 MB;
+    a ragged S rounds up to whole chunks."""
+    moved, scratch = smoke.wkv6_pass_bytes(4, 2048, 32, 64, 2)
+    assert scratch == 2 * 4 * 4 * 32 * 64 * 64 * 64
+    assert moved == pytest.approx(641.74e6, rel=1e-4)
+    assert 1e3 * moved / smoke.HBM_BYTES_PER_S == pytest.approx(0.1916,
+                                                                 abs=5e-5)
+    assert smoke.wkv6_pass_bytes(1, 33, 1, 32, 2)[1] == 2 * 4 * 2 * 32 * 32
+
+
+def test_trace_report_reads_the_trace(smoke):
+    """Rows (SM, start, end, op), starting at 1000 ns: the stream CTA on SM
+    0 spends 60 of its 100 ns beside two overlapping matmul CTAs (merged,
+    not counted twice); the one on SM 1 meets none. The stream phase ends at
+    100 ns; matmul CTAs starting before it take 40 ns on average, after it
+    75 ns; at 1/4 of the 200 ns launch one matmul and two stream CTAs are
+    resident, two stream CTAs at most, and 0.8 matmul CTAs on average
+    while stream CTAs ran."""
+    trace = [(0, 1000, 1100, 1), (0, 1040, 1080, 0), (0, 1060, 1100, 0),
+             (0, 1150, 1200, 0), (1, 1000, 1100, 1), (1, 1100, 1200, 0)]
+    got = smoke.trace_report(trace)
+    assert got["share"] == pytest.approx(60 / 200)
+    assert got["met"] == 0.5 and got["stream_sms"] == 2
+    assert got["stream_end_us"] == pytest.approx(0.1)
+    assert got["mm_us_during"] == pytest.approx(0.04)
+    assert got["mm_us_after"] == pytest.approx(0.075)
+    assert got["resident"] == [(1, 2), (1, 0), (2, 0)]
+    assert got["stream_us"] == pytest.approx(0.1) and got["peak_stream"] == 2
+    assert got["mm_resident_during"] == pytest.approx((40 + 40) / 100)
+    alone = smoke.trace_report([(3, 5, 15, 0)])
+    assert alone["share"] == 0.0 and alone["mm_us_after"] == pytest.approx(0.01)

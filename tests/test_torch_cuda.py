@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sliced_matmul as SM
@@ -97,27 +98,72 @@ def test_flash_attention_bf16_matches_plain(cuda, d, causal, s):
 
 
 def test_bf16_runs_on_the_tensor_cores(cuda):
-    """A bf16 call of K1 and of K3 runs the wgmma kernels and not the FMA
+    """A bf16 call of K1, K2 and K3 runs the wgmma kernels and not the FMA
     ones, which only f32 reaches."""
     from torch.profiler import ProfilerActivity, profile
     a = torch.randn(256, 256, device=cuda).bfloat16()
+    x = torch.randn(512, 256, device=cuda).bfloat16()
     q = torch.randn(1, 2, 256, 96, device=cuda).bfloat16()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ops.sliced_matmul(a, a)
+        ops.coschedule(a, a, x)
         ops.flash_attention(q, q, q)
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages())
     assert "sliced_matmul_wgmma_kernel" in names, names
+    assert "coschedule_wgmma_kernel" in names, names
     assert "flash_fwd_wgmma_kernel" in names, names
     assert "sliced_matmul_kernel" not in names, names
+    assert "coschedule_kernel" not in names, names
     assert "flash_fwd_kernel" not in names, names
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ops.sliced_matmul(a.float(), a.float())
+        ops.coschedule(a.float(), a.float(), x.float())
         ops.flash_attention(q.float(), q.float(), q.float())
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages())
     assert "sliced_matmul_kernel" in names and "flash_fwd_kernel" in names
+    assert "coschedule_kernel" in names, names
     assert "wgmma" not in names, names
+
+
+def test_coschedule_bf16_takes_whole_stages_of_k(cuda):
+    """bf16 K2 stages K 64 at a time on the wgmma tile: K = 96 is refused,
+    not cut."""
+    a = torch.zeros(128, 96, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(96, 128, device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros(256, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stages K"):
+        ops.coschedule(a, b, x)
+
+
+def test_coschedule_holds_two_ctas_an_sm(cuda):
+    """Two bf16 K2 CTAs fit on one SM, so a stream CTA can sit beside a
+    matmul CTA."""
+    assert CS.occupancy() >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coschedule_trace_records_every_step(cuda, dtype):
+    """One traced launch of either kernel: every step writes its SM, a start
+    no later than its end, and its op; the results equal an untraced
+    launch's."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn(384, 128, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(128, 256, generator=gen, device=cuda).to(dtype)
+    x = torch.randn(1024, 256, generator=gen, device=cuda).to(dtype)
+    schedule = CS.make_schedule(6, 4, 2, 1)
+    sched = CS.schedule_tensor(schedule, cuda)
+    trace = torch.zeros(len(schedule[0]), 4, dtype=torch.int64, device=cuda)
+    got = CS.launch(a, b, x, sched, scale=2.0, bx=256, trace=trace)
+    want = CS.launch(a, b, x, sched, scale=2.0, bx=256)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rec = trace.cpu()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bool(((rec[:, 0] >= 0) & (rec[:, 0] < sms)).all())
+    assert bool((rec[:, 1] <= rec[:, 2]).all()) and bool((rec[:, 1] > 0).all())
+    assert rec[:, 3].tolist() == schedule[0].tolist()
 
 
 def test_server_drains_through_the_kernels(cuda):
@@ -165,6 +211,30 @@ def test_rwkv6_scan_matches_plain(cuda, b, s, h, n, chunk, dtype):
     for a, b_ in ((got, want), (state, want_s), (got, plain),
                   (state, plain_s)):
         torch.testing.assert_close(a, b_, **tol)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("s", [37, 64])
+def test_rwkv6_scan_extreme_decay_matches_oracle(cuda, n, s):
+    """A log decay of -4 a step (tests/test_torch_recurrent.py's seed-24
+    case), from zero and from a given state, against the sequential oracle
+    (f32, 1e-3): above the diagonal the exponent would reach 4 * 31, so the
+    kernels form none there. S = 37 leaves a ragged last chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    r, k, v = (torch.randn(1, s, 2, n, generator=gen, device=cuda)
+               for _ in range(3))
+    w_log = torch.full_like(r, -4.0)
+    u = torch.randn(2, n, generator=gen, device=cuda) * 0.1
+    s0 = torch.randn(1, 2, n, n, generator=gen, device=cuda)
+    tol = dict(atol=1e-3, rtol=1e-3)
+    got = ops.rwkv6_scan(r, k, v, w_log, u, chunk=s)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref.rwkv6(r, k, v, w_log, u)[0], **tol)
+    state = s0.clone()
+    got = ops.rwkv6_scan(r, k, v, w_log, u, chunk=s, state=state)
+    want, want_s = ref.rwkv6(r, k, v, w_log, u, s0)
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(state, want_s, **tol)
 
 
 def test_rwkv6_scan_checks_each_dtype(cuda):

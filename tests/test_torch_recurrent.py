@@ -21,6 +21,7 @@ from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_scan as WKV
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 
@@ -137,6 +138,64 @@ def test_rwkv6_chunked_stays_finite_where_reference_overflows():
     assert not np.isfinite(np.asarray(want)).all()
     got, _ = R.rwkv6_chunked(t(r), t(k), t(v), t(w_log), t(u), t(s0),
                              chunk=32)
+    assert bool(torch.isfinite(got).all())
+    close(got, jax_ref.rwkv6(r, k, v, w_log, u)[0], 1e-4)
+
+
+def _two_pass(r, k, v, w_log, u, state=None):
+    """WKV.two_pass, with the largest exponent it formed."""
+    seen = []
+    out, final = WKV.two_pass(r, k, v, w_log, u, state,
+                              on_exponent=lambda x: seen.append(x.max()))
+    return out, final, max(float(m) for m in seen)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,n,chunk", [(2, 64, 2, 32, 16),
+                                           (1, 128, 4, 64, 32)])
+def test_rwkv6_two_pass_matches_reference(b, s, h, n, chunk, dtype):
+    """K4's decomposition (chunk states first, then outputs, the scores
+    factored across sub-chunks of 16) against the reference's Pallas kernel
+    in interpret mode, with tests/test_kernels.py:75-76's tolerances (f32
+    1e-3, bf16 5e-2), and against the port's plain chunked version on the
+    same inputs (1e-4: both f32, summed in other orders). No exponent it
+    forms is above 0."""
+    r, k, v, w_log, u = wkv_inputs(np.random.default_rng(25), b, s, h, n)
+    (jr, tr), (jk, tk), (jv, tv) = (pair(a, dtype) for a in (r, k, v))
+    got, got_s, top = _two_pass(tr, tk, tv, t(w_log), t(u))
+    assert top <= 0.0
+    tol = 5e-2 if dtype == "bfloat16" else 1e-3
+    close(got, jax_ops.rwkv6_scan(jr, jk, jv, w_log, u, chunk=chunk), tol)
+    plain, plain_s = R.rwkv6_chunked(tr, tk, tv, t(w_log), t(u),
+                                     torch.zeros(b, h, n, n), chunk=chunk)
+    close(got, plain, 1e-4)
+    close(got_s, plain_s, 1e-4)
+
+
+@pytest.mark.parametrize("s", [37, 80])
+def test_rwkv6_two_pass_from_a_state_at_a_ragged_length(s):
+    """A given initial state and a ragged last chunk (padded with zeros),
+    out and final state against the reference's sequential oracle (f32,
+    1e-4)."""
+    rng = np.random.default_rng(26)
+    r, k, v, w_log, u = wkv_inputs(rng, 2, s, 2, 32)
+    s0 = rng.standard_normal((2, 2, 32, 32)).astype(np.float32)
+    got, got_s, top = _two_pass(t(r), t(k), t(v), t(w_log), t(u), t(s0))
+    assert top <= 0.0
+    want, want_s = jax_ref.rwkv6(r, k, v, w_log, u, s0)
+    close(got, want, 1e-4)
+    close(got_s, want_s, 1e-4)
+
+
+def test_rwkv6_two_pass_stays_finite_at_extreme_decay():
+    """The seed-24 input of a log decay of -4 a step, where the reference
+    model overflows above the diagonal: the decomposition forms no exponent
+    above 0, stays finite and matches the sequential oracle (f32, 1e-4)."""
+    rng = np.random.default_rng(24)
+    r, k, v, _, u = wkv_inputs(rng, 1, 64, 2, 16)
+    w_log = np.full_like(r, -4.0)
+    got, _, top = _two_pass(t(r), t(k), t(v), t(w_log), t(u))
+    assert top <= 0.0
     assert bool(torch.isfinite(got).all())
     close(got, jax_ref.rwkv6(r, k, v, w_log, u)[0], 1e-4)
 
