@@ -17,7 +17,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      share of stream time spent beside a matmul CTA on the same SM; 2d: K4
      rwkv6_scan, from zero and from a given state overwritten in place, at
      a ragged S and at an extreme decay, with each pass's device time; 2e:
-     K5 rg_lru, from zero and from h0);
+     K5 rg_lru, f32 and bf16, from zero and from h0, on ragged shapes and
+     over several windows, two calls chained through h0 against one, its
+     clusters' occupancy, and the bytes it moves beside its bound);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -61,18 +63,22 @@ K3_REL_TOL = 1e-2
 K4_REL_TOL = 1e-3
 # the __global__ functions of csrc/*.cu, to find them in a profile: the
 # tensor-core paths of K1, K2 and K3 (bf16) and their FMA paths (f32), K4's
-# two passes and K5
+# two passes and K5's cluster kernel
 KERNEL_SYMBOLS = ("sliced_matmul_wgmma_kernel", "sliced_matmul_kernel",
                   "coschedule_wgmma_kernel", "coschedule_kernel",
                   "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                  "wkv6_states_kernel", "wkv6_out_kernel", "rg_lru_kernel")
+                  "wkv6_states_kernel", "wkv6_out_kernel",
+                  "rg_lru_cluster_kernel")
 K4_KERNELS = ("wkv6_states_kernel", "wkv6_out_kernel")
+K5_KERNEL = "rg_lru_cluster_kernel"
+K5_OLD_KERNEL = "rg_lru_kernel"        # the per-segment kernel it replaced
 SMS = 132                                 # H100 SXM streaming multiprocessors
 # the kernels' times before their redesign, at the same shapes, printed
 # beside this run's (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): K2
-# on its FMA tile, K4 as one CTA per (b, h)
+# on its FMA tile, K4 as one CTA per (b, h), K5 as one CTA per 32 channels
+# reading x and a_log twice
 EARLIER_MS = {"coschedule": dict(fused=42.174, matmul=40.887, stream=1.062),
-              "rwkv6_scan": 1.7817}
+              "rwkv6_scan": 1.7817, "rg_lru": 0.1572}
 
 
 def log(msg: str) -> None:
@@ -164,6 +170,13 @@ def wkv6_pass_bytes(b: int, s: int, h: int, n: int, rkv_bytes: int,
     pass1 = (2 * rkv_bytes + 4) * tokens + 2 * state + scratch
     pass2 = (3 * rkv_bytes + 4 + 4) * tokens + 4 * h * n + scratch
     return pass1 + pass2, 2 * scratch
+
+
+def lru_bytes(b: int, s: int, w: int, in_bytes: int, reads: int = 1) -> int:
+    """Bytes K5 moves at (b, s, w) from a given h0: x and a_log (``in_bytes``
+    an element) read ``reads`` times, h0 read and h (f32) written once."""
+    n = b * s * w
+    return reads * 2 * in_bytes * n + 4 * n + 4 * b * w
 
 
 def trace_report(trace) -> dict:
@@ -321,6 +334,7 @@ def main() -> int:
     from repro_torch.core.profiles import C2050
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import coschedule as CS
+    from repro_torch.kernels import rg_lru as LRU
     from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.kernels import sliced_matmul as SM
     from repro_torch.launch.serve import Job, SharedPodServer
@@ -650,44 +664,99 @@ def main() -> int:
     del r, k, v, w_log, u, s0, zeros, state
 
     # ---- phase 2e: K5 rg_lru ---------------------------------------------
-    def lru_inputs(b, s, w):
-        return (randn((b, s, w), torch.float32),
-                -torch.exp(randn((b, s, w), torch.float32)))
+    def lru_inputs(b, s, w, dtype=torch.float32):
+        return (randn((b, s, w), torch.float32).to(dtype),
+                (-torch.exp(randn((b, s, w), torch.float32))).to(dtype))
 
-    for (b, s, w, chunk, bw) in [(2, 256, 512, 64, 256),
-                                 (1, 128, 1024, 128, 512)]:
-        xs, als = lru_inputs(b, s, w)
-        h0 = randn((b, w), torch.float32)
-        err = max_err(torch, ops.rg_lru(xs, als, chunk=chunk, bw=bw),
-                      ref.rg_lru(xs, als), K5_TOL)
-        err_h = max_err(torch, ops.rg_lru(xs, als, chunk=chunk, bw=bw, h0=h0),
-                        ref.rg_lru(xs, als, h0), K5_TOL)
-        log(f"[K5 grid] {(b, s, w)} f32 err {err:.3e}; from h0 err "
-            f"{err_h:.3e}")
+    def lru(x, a_log, h0=None):       # one block over the call, as the model
+        return ops.rg_lru(x, a_log, chunk=x.shape[1], bw=x.shape[2], h0=h0)
+
+    # the CPU tests' grids; then ragged in the 32-channel block with
+    # W * 4 % 16 != 0 (the threads load the tiles), and three windows of 2048
+    for (b, s, w) in [(2, 256, 512), (1, 128, 1024), (3, 37, 100),
+                      (2, 300, 42), (1, 4100, 64)]:
+        for dt in (torch.float32, torch.bfloat16):
+            xs, als = lru_inputs(b, s, w, dt)
+            xf, af = xs.float(), als.float()
+            h0 = randn((b, w), torch.float32)
+            err = max_err(torch, lru(xs, als), ref.rg_lru(xf, af), K5_TOL)
+            got = lru(xs, als, h0)
+            err_h = max(max_err(torch, got, ref.rg_lru(xf, af, h0), K5_TOL),
+                        max_err(torch, got, R.rglru_scan(xf, af, h0)[0],
+                                K5_TOL))
+            log(f"[K5 grid] {(b, s, w)} {dt} err {err:.3e}; from h0 err "
+                f"{err_h:.3e}")
+    xs, als = lru_inputs(1, 4100, 96)
+    h0 = randn((1, 96), torch.float32)
+    cut = LRU.RANKS * LRU.STEPS
+    first = lru(xs[:, :cut].contiguous(), als[:, :cut].contiguous(), h0)
+    second = lru(xs[:, cut:].contiguous(), als[:, cut:].contiguous(),
+                 first[:, -1].contiguous())
+    assert torch.equal(torch.cat([first, second], 1), lru(xs, als, h0)), \
+        "K5: two calls chained through h0 differ from one"
+    log(f"[K5 chain] (1, 4100, 96) f32: {cut} and {4100 - cut} steps chained "
+        f"through h0 == one call, bitwise")
     shape = (1, 2048, 4096)
+    occ = {dt: LRU.occupancy(dt) for dt in (torch.float32, torch.bfloat16)}
+    for dt, (clusters, per_sm) in occ.items():
+        assert clusters >= 1 and per_sm >= 1, (dt, clusters, per_sm)
+    log(f"[K5 occupancy] clusters of {LRU.RANKS} CTAs resident at once "
+        f"(cudaOccupancyMaxActiveClusters) and CTAs an SM: f32 "
+        f"{occ[torch.float32][0]} clusters, {occ[torch.float32][1]} an SM; "
+        f"bf16 {occ[torch.bfloat16][0]}, {occ[torch.bfloat16][1]}; the grid "
+        f"at {shape} is {shape[0] * math.ceil(shape[2] / 32)} clusters")
     xs, als = lru_inputs(*shape)
-    h0 = torch.zeros(shape[0], shape[2], device=dev)
+    zeros = torch.zeros(shape[0], shape[2], device=dev)
     k5_errs = []
-    for init in (h0, randn((shape[0], shape[2]), torch.float32)):
+    for init in (zeros, randn((shape[0], shape[2]), torch.float32)):
         got = ops.rg_lru(xs, als, h0=init)
         k5_errs.append(max(
             max_err(torch, got, R.rglru_scan(xs, als, init)[0], K5_TOL),
             max_err(torch, got, ref.rg_lru(xs, als, init), K5_TOL)))
+    xb, ab = xs.bfloat16(), als.bfloat16()
+    got = ops.rg_lru(xb, ab, h0=init)
+    bf16_err = max_err(torch, got, ref.rg_lru(xb.float(), ab.float(), init),
+                       K5_TOL)
     del got
-    ms = time_ms(torch, lambda: ops.rg_lru(xs, als, h0=h0), 20)
-    plain = time_ms(torch, lambda: R.rglru_scan(xs, als, h0), 3)
-    nbytes = 3 * 4 * xs.numel() + 4 * h0.numel()
+
+    def k5_device_ms(x, a_log, reps=20):
+        # a call's host work (checks, two tensor maps) is of the kernel's
+        # order, so back-to-back events would time the host: the profiler's
+        # device time of the kernel instead
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                ops.rg_lru(x, a_log, h0=zeros)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if K5_KERNEL in e.key]
+        assert sum(e.count for e in evs) == reps, [e.key for e in evs]
+        return sum(e.self_device_time_total for e in evs) / (reps * 1e3)
+
+    ms = k5_device_ms(xs, als)
+    ms_bf16 = k5_device_ms(xb, ab)
+    event_ms = time_ms(torch, lambda: ops.rg_lru(xs, als, h0=zeros), 20)
+    plain = time_ms(torch, lambda: R.rglru_scan(xs, als, zeros), 3)
+    nbytes = lru_bytes(*shape, 4)
     b_ms, b_by = bound(9.0 * xs.numel(), nbytes, "float32")
     rows["rg_lru"] = dict(
         source="src/repro_torch/csrc/rg_lru.cu",
         replaces="src/repro/kernels/rg_lru.py:41", max_abs_err=max(k5_errs),
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        event_ms=event_ms, bf16_ms=ms_bf16, bf16_err=bf16_err,
+        clusters=occ[torch.float32][0], ctas_per_sm=occ[torch.float32][1])
     log(f"[K5] {shape} f32: err {max(k5_errs):.3e} (tol atol=rtol=1e-4, "
         f"against the plain scan and the oracle, from zero and from h0); "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s); no one PyTorch call "
-        f"computes it")
-    del xs, als, h0
+        f"bf16 x/a_log err {bf16_err:.3e} against the oracle on the same "
+        f"values in f32; kernel {ms:.4f} ms device time (profiler, mean of "
+        f"20; before this design {EARLIER_MS['rg_lru']}), {event_ms:.4f} ms "
+        f"a call back to back (CUDA events, the host's work included); moves "
+        f"{nbytes / 1e6:.1f} MB (the kernel it replaced "
+        f"{lru_bytes(*shape, 4, reads=2) / 1e6:.1f} MB), "
+        f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of its bound; bf16 "
+        f"{ms_bf16:.4f} ms ({lru_bytes(*shape, 2) / 1e6:.1f} MB, "
+        f"{lru_bytes(*shape, 2) / ms_bf16 / 1e6:.1f} GB/s); plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s); no one PyTorch call computes it")
+    del xs, als, xb, ab, h0, zeros, init, first, second
 
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
@@ -799,6 +868,9 @@ def main() -> int:
     names = " ".join(seen[jobs[0].name])
     assert all(k in names for k in K4_KERNELS) and "wkv6_kernel" not in names, \
         f"the RWKV6 prefill step did not run K4's two passes: {names}"
+    names = " ".join(seen[jobs[2].name])
+    assert K5_KERNEL in names and K5_OLD_KERNEL not in names, \
+        f"the RecurrentGemma prefill step did not run K5's kernel: {names}"
     launches = {name: launches[name] + rec_launches[name]
                 for name in _build.NAMES}
     for name in _build.NAMES:
@@ -829,6 +901,9 @@ def main() -> int:
                                                "mm_us_during",
                                                "mm_us_after", "mm_us_alone",
                                                "states_ms", "out_ms",
+                                               "event_ms", "bf16_ms",
+                                               "bf16_err", "clusters",
+                                               "ctas_per_sm",
                                                "rel_err", "row_rel_err")
                            if k in row}})
     for row in kernels:

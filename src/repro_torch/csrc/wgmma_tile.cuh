@@ -2,7 +2,8 @@
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, and the one-CTA (128 x 128) bf16 output tile that
 // K1 (sliced_matmul.cu, 4 stages) and K2 (coschedule.cu, 3 stages) run.
-// flash_attention.cu uses the same primitives for its own loop.
+// flash_attention.cu uses the same primitives for its own loop, rg_lru.cu
+// its mbarrier, TMA and tensor-map parts.
 //
 // The tile: C[128 x 128] = A[128 x K] @ B[K x 128], bf16 in, f32 accumulate,
 // bf16 out. 288 threads: warps 0-7 are two consumer warpgroups, each issuing
@@ -280,12 +281,12 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
 // ---------------------------------------------------------------------------
 // host: TMA tensor maps
 // ---------------------------------------------------------------------------
-// Encodes a bf16 tensor map of `rank` dimensions (innermost first; strides in
+// Encodes a tensor map of `rank` dimensions (innermost first; strides in
 // bytes for dimensions 1..rank-1), out-of-range elements read as zero.
 // Returns 0 or a cudaError_t.
-inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                           const cuuint64_t* strides, const cuuint32_t* box,
-                           CUtensorMapSwizzle swizzle) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -306,12 +307,18 @@ inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cu
     encode = reinterpret_cast<EncodeFn>(fn);
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+  const CUresult res = encode(map, type, static_cast<cuuint32_t>(rank),
                               const_cast<void*>(ptr), dims, strides, box, elem_strides,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box,
+                           CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box, swizzle);
 }
 
 // ---------------------------------------------------------------------------

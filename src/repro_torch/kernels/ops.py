@@ -71,8 +71,9 @@ def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):
 
 
 def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
-    """Returns h (B, S, W) f32. ``h0`` ((B, W) f32), an addition to the
-    reference's keywords, is the initial state; None means zeros."""
+    """x, a_log (B, S, W) f32 or bf16 -> h (B, S, W) f32. ``h0`` ((B, W)
+    f32), an addition to the reference's keywords, is the initial state;
+    None means zeros."""
     _lru.check_shapes(x, a_log, chunk, bw)
     if _on_cpu(x):
         from repro_torch.models.recurrent import rglru_scan

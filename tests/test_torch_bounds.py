@@ -1,9 +1,10 @@
 """The yardsticks ``chip_smoke.py`` holds the kernels' times against: the
 card's least time for the work (``bound``), the least time of a matmul cut
 into slices (``sliced_bound_ms``), K4's work and bound (``wkv6_work``,
-``wkv6_bound_ms``, ``wkv6_pass_bytes``), and what ``trace_report`` reads
-from K2's trace. Pure arithmetic from the H100's data-sheet peaks, so it runs on
-the CPU; ``chip_smoke`` imports torch only inside ``main``."""
+``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), and
+what ``trace_report`` reads from K2's trace. Pure arithmetic from the H100's
+data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
+inside ``main``."""
 import importlib.util
 import math
 import pathlib
@@ -52,6 +53,16 @@ def test_bound(smoke, flops, nbytes, want_ms, by):
     ms, got_by = smoke.bound(flops, nbytes, dtype)
     assert got_by == by
     assert ms == pytest.approx(want_ms, abs=5e-5)
+
+
+@pytest.mark.parametrize("in_bytes,reads,want", [
+    (4, 1, 100_679_680),    # f32, x and a_log read once: the bound's bytes
+    (2, 1, 67_125_248),     # bf16 x and a_log
+    (4, 2, 167_788_544),    # f32 read twice, as the kernel it replaced did
+])
+def test_lru_bytes(smoke, in_bytes, reads, want):
+    """K5's bytes at (1, 2048, 4096) from a given h0."""
+    assert smoke.lru_bytes(1, 2048, 4096, in_bytes, reads) == want
 
 
 @pytest.mark.parametrize("slice_size,want_ms", [

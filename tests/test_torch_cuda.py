@@ -13,9 +13,11 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rg_lru as LRU
 from repro_torch.kernels import sliced_matmul as SM
 from repro_torch.launch import serve as TS
 from repro_torch.models import recurrent as R
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -250,11 +252,15 @@ def test_rwkv6_scan_checks_each_dtype(cuda):
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 256, 512), (1, 128, 1024),
-                                   (3, 37, 100)])
+                                   (3, 37, 100), (2, 300, 42),
+                                   (1, 4100, 64)])
 def test_rg_lru_matches_plain(cuda, b, s, w):
     """K5 from zero and from h0 against the oracle and the plain scan,
-    1e-4 (tests/test_kernels.py:88-89); (3, 37, 100) is ragged in both
-    the kernel's time segments and its 32-channel blocks."""
+    1e-4 (tests/test_kernels.py:88-89). (3, 37, 100) and (2, 300, 42) are
+    ragged in the kernel's 32-channel blocks and lie inside one window of
+    2048 steps, most of its CTAs past S; W * 4 % 16 != 0 in both, so the
+    threads load the tiles where TMA cannot; (1, 4100, 64) walks three
+    windows, the last ragged."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(b, s, w, generator=gen, device=cuda)
     a_log = -torch.exp(torch.randn(b, s, w, generator=gen, device=cuda))
@@ -265,6 +271,65 @@ def test_rg_lru_matches_plain(cuda, b, s, w):
     got = ops.rg_lru(x, a_log, chunk=s, bw=w, h0=h0)
     torch.testing.assert_close(got, ref.rg_lru(x, a_log, h0), **tol)
     torch.testing.assert_close(got, R.rglru_scan(x, a_log, h0)[0], **tol)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 300, 42), (1, 4100, 64)])
+def test_rg_lru_takes_bf16(cuda, b, s, w):
+    """bf16 x and a_log, widened in the kernel, give f32 h within 1e-4 of
+    the oracle on the same values in f32, from zero and from h0; W = 42
+    takes the threads' loads (W * 2 % 16 != 0), W = 64 the TMA path."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(b, s, w, generator=gen, device=cuda).bfloat16()
+    a_log = (-torch.exp(torch.randn(b, s, w, generator=gen, device=cuda))
+             ).bfloat16()
+    h0 = torch.randn(b, w, generator=gen, device=cuda)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    for init in (None, h0):
+        got = ops.rg_lru(x, a_log, chunk=s, bw=w, h0=init)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref.rg_lru(x.float(), a_log.float(),
+                                                   init), **tol)
+
+
+def test_rg_lru_chains_through_h0(cuda):
+    """Two calls chained through h0, split at the kernel's window, equal
+    one call over both bit for bit: the window carry is the last row of h
+    as written."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 4100, 96, generator=gen, device=cuda)
+    a_log = -torch.exp(torch.randn(2, 4100, 96, generator=gen, device=cuda))
+    h0 = torch.randn(2, 96, generator=gen, device=cuda)
+    cut = LRU.RANKS * LRU.STEPS
+    whole = ops.rg_lru(x, a_log, chunk=4100, bw=96, h0=h0)
+    first = ops.rg_lru(x[:, :cut].contiguous(), a_log[:, :cut].contiguous(),
+                       chunk=cut, bw=96, h0=h0)
+    second = ops.rg_lru(x[:, cut:].contiguous(), a_log[:, cut:].contiguous(),
+                        chunk=4100 - cut, bw=96, h0=first[:, -1].contiguous())
+    assert torch.equal(torch.cat([first, second], 1), whole)
+
+
+def test_recurrentgemma_prefill_runs_the_cluster_kernel(cuda):
+    """A RecurrentGemma prefill runs K5's cluster kernel, not the
+    per-segment ``rg_lru_kernel`` it replaced."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = reduced(get_config("recurrentgemma-9b"))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), device=cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        T.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert "rg_lru_cluster_kernel" in names, names
+    assert "rg_lru_kernel" not in names, names
+
+
+def test_rg_lru_fills_the_card_with_clusters(cuda):
+    """The runtime places at least one cluster of the f32 and the bf16
+    kernel, and two or more CTAs an SM."""
+    for dtype in (torch.float32, torch.bfloat16):
+        clusters, per_sm = LRU.occupancy(dtype)
+        assert clusters >= 1 and per_sm >= 2, (dtype, clusters, per_sm)
 
 
 def test_recurrent_server_drains_through_k4_and_k5(cuda):

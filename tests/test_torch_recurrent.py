@@ -21,6 +21,7 @@ from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rg_lru as LRU
 from repro_torch.kernels import rwkv6_scan as WKV
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
@@ -101,6 +102,59 @@ def test_oracles_with_initial_state_match_reference():
           1e-5)
     close(ops.rg_lru(t(x), t(a_log), chunk=8, h0=t(h0)),
           jax_ref.rg_lru(x, a_log, h0), 1e-5)
+
+
+# (B, S, W, tiling): S under one window and W ragged against the kernel's
+# 32-channel block with W * 4 % 16 != 0 (its threads load the tiles); S over
+# one window, ragged; and a small tiling (windows of 64) over three windows,
+# the last ragged
+LRU_CASES = [(2, 300, 42, {}), (1, 2100, 36, {}),
+             (2, 150, 20, dict(steps=16, ranks=4, sub=4))]
+
+
+def lru_inputs(rng, b, s, w):
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    a_log = -np.exp(rng.standard_normal((b, s, w))).astype(np.float32)
+    return x, a_log, rng.standard_normal((b, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,w,tiling", LRU_CASES)
+def test_rg_lru_cluster_scan_matches_reference(b, s, w, tiling, dtype):
+    """K5's decomposition (``LRU.cluster_scan``: windows, ranks,
+    sub-segments, the rank chain and the window carry) against the
+    reference's Pallas kernel in interpret mode (from zero) and its
+    sequential oracle (from zero and from h0), x and a_log in ``dtype``
+    widened to f32 by each side; 1e-4 (tests/test_kernels.py:88-89). The
+    CPU route of ``ops.rg_lru`` takes the same ``dtype`` and returns f32."""
+    x, a_log, h0 = lru_inputs(np.random.default_rng(27), b, s, w)
+    (jx, tx), (ja, ta) = pair(x, dtype), pair(a_log, dtype)
+    got = LRU.cluster_scan(tx, ta, **tiling)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, w)
+    close(got, jax_ops.rg_lru(jx, ja, chunk=s, bw=w), 1e-4)
+    close(got, jax_ref.rg_lru(jx, ja), 1e-4)
+    want = jax_ref.rg_lru(jx, ja, h0)
+    close(LRU.cluster_scan(tx, ta, t(h0), **tiling), want, 1e-4)
+    got = ops.rg_lru(tx, ta, chunk=s, bw=w, h0=t(h0))
+    assert got.dtype == torch.float32
+    close(got, want, 1e-4)
+
+
+def test_rg_lru_cluster_scan_chains_through_h0():
+    """Two calls chained through h0, split at a window boundary, equal one
+    call over both: the window carry is the last row of h as written. 1e-6:
+    the same arithmetic on the same values, save exp over tensors of other
+    sizes, which may round an ulp apart. The whole against the reference's
+    oracle, 1e-4."""
+    x, a_log, h0 = lru_inputs(np.random.default_rng(28), 2, 4100, 12)
+    cut = LRU.RANKS * LRU.STEPS
+    tx, ta = t(x), t(a_log)
+    whole = LRU.cluster_scan(tx, ta, t(h0))
+    first = LRU.cluster_scan(tx[:, :cut], ta[:, :cut], t(h0))
+    second = LRU.cluster_scan(tx[:, cut:], ta[:, cut:], first[:, -1])
+    torch.testing.assert_close(torch.cat([first, second], 1), whole,
+                               atol=1e-6, rtol=1e-6)
+    close(whole, jax_ref.rg_lru(x, a_log, h0), 1e-4)
 
 
 def test_rwkv6_chunked_with_state_matches_reference():
