@@ -6,42 +6,58 @@ version, drives the port's main paths, and prints what it measured.
   python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases, each asserting (a failure exits non-zero and prints no result):
-  1. device check, ``nvidia-smi`` name and power limit, parallel nvcc build
-     of all five kernels;
+  1. device check, ``nvidia-smi`` name, power limit and maximum SM clock,
+     the card's SM count beside the H100 model's, parallel nvcc build of
+     all five kernels with each instance's registers and spills (K3's
+     instances must spill nothing);
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
-     (2a-2c: K3, K1, K2; K1 at slice sizes 4 and 132 and as one launch,
-     each beside its bound at that slice size; K2's occupancy, fused,
-     matmul-alone and stream-alone times, and from one traced launch the
-     share of stream time spent beside a matmul CTA on the same SM; 2d: K4
-     rwkv6_scan, from zero and from a given state overwritten in place, at
-     a ragged S and at an extreme decay, with each pass's device time; 2e:
-     K5 rg_lru, f32 and bf16, from zero and from h0, on ragged shapes and
-     over several windows, two calls chained through h0 against one, its
-     clusters' occupancy, and the bytes it moves beside its bound);
+     (2a: K3 at D = 96, and at StableLM's D = 80 and 160 in bf16 and f32,
+     causal and full, each timed beside its bound and SDPA, with the
+     profiler naming their instances; 2b: K1 at slice sizes 4 and 132 and
+     as one launch, each beside its bound at that slice size; 2c: K2's
+     occupancy, fused, matmul-alone and stream-alone times at the C2050
+     model's run ratio and at the one the H100 model picks for the same two
+     kernels, and from one traced launch the share of stream time spent
+     beside a matmul CTA on the same SM; 2d: K4 rwkv6_scan, from zero and
+     from a given state overwritten in place, at a ragged S, at an extreme
+     decay, with bf16 w_log and u and at a padded N, with each pass's
+     device time; 2e: K5 rg_lru, f32 and bf16, from zero and from h0, on
+     ragged shapes and over several windows, two calls chained through h0
+     against one, its clusters' occupancy, and the bytes it moves beside
+     its bound);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
      ``ops.sliced_matmul`` at its default slice size, and
-     ``SharedPodServer(use_reduced=False)`` serving two full-width
-     phi3-mini-3.8b tenants (a prefill job and a decode job);
-  3b. the recurrent path, counted the same way: a second
-     ``SharedPodServer(use_reduced=False)`` serving full-width rwkv6-1.6b and
-     recurrentgemma-9b tenants (a prefill and a decode job each, the two
-     jobs of an arch sharing one set of weights), whose prefill steps run
-     K4 and K5;
+     ``SharedPodServer(use_reduced=False)`` on the H100 model serving two
+     full-width phi3-mini-3.8b tenants (a prefill job and a decode job);
+     then the decisions of the H100 and v5e models side by side, the
+     spread of drain/serial over alternating passes in this call (serial,
+     the drain under each model's decisions), and one drain through the
+     port's own ``ServingDaemon``;
+  3b. the recurrent path, counted the same way: a second server serving
+     full-width rwkv6-1.6b and recurrentgemma-9b tenants (a prefill and a
+     decode job each, the two jobs of an arch sharing one set of weights),
+     whose prefill steps run K4 and K5, with the same report;
+  3c. StableLM, counted the same way: full-width stablelm-3b (D = 80; a
+     prefill and a decode tenant) and stablelm-12b (D = 160; a prefill
+     tenant) served on the H100 model, one arch's weights at a time, K3
+     launched once a layer per prefill run;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
-Predicted CP and makespan come from the scheduler's TPU v5e model and are
-labelled so; every time printed here is the card's own.
+Predicted CP and makespan are the scheduler's model predictions, labelled
+with the model (H100 or v5e); every time printed here is the card's own.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -73,6 +89,9 @@ K4_KERNELS = ("wkv6_states_kernel", "wkv6_out_kernel")
 K5_KERNEL = "rg_lru_cluster_kernel"
 K5_OLD_KERNEL = "rg_lru_kernel"        # the per-segment kernel it replaced
 SMS = 132                                 # H100 SXM streaming multiprocessors
+# StableLM's head dims (3B, 12B), K3's instances beside Phi-3's 96
+K3_NEW_DIMS = (80, 160)
+PASSES = 10       # alternating serial/drain passes a serving phase
 # the kernels' times before their redesign, at the same shapes, printed
 # beside this run's (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): K2
 # on its FMA tile, K4 as one CTA per (b, h), K5 as one CTA per 32 channels
@@ -85,11 +104,46 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def nvidia_smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def ptxas_entries(log_text: str) -> list:
+    """From ``nvcc -Xptxas -v`` output, one (instance, registers line,
+    stack and spill line) per compiled kernel, the instance shortened from
+    its mangled name (``flash_fwd_wgmma_kernelILi80E``)."""
+    def instance(line):
+        # a mangled name is <length><name>: try each length that ends
+        # where a name starts, and keep the one that names a kernel
+        for m in re.finditer(r"\d+(?=[A-Za-z_])", line):
+            for i in range(len(m.group())):
+                name = line[m.end():m.end() + int(m.group()[i:])]
+                if name.endswith("_kernel"):
+                    args = re.match(r"I[^E]*E", line[m.end() + len(name):])
+                    return name + (args.group() if args else "")
+        return line.strip()
+
+    out, entry, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            entry = instance(line)
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and entry is not None:
+            out.append((entry, line.split(":", 1)[-1].strip(), spill))
+            entry = None
+    return out
+
+
+def median_range(xs):
+    """(median, least, most) of a list of numbers."""
+    s = sorted(xs)
+    n = len(s)
+    med = s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
+    return med, s[0], s[-1]
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -267,33 +321,93 @@ def prefill_runs(rounds, name) -> int:
                    for k1, k2, n1, n2, _ in rounds)
 
 
-def drain_report(torch, srv, res, label: str) -> dict:
-    """Print a drain's rounds, each job's step timed alone, the serial sum
-    against the first and a warm drain of the same slices, and each step's
-    top device kernels. The first drain was the first on its streams (their
-    allocator pools start empty); a second drain of the same slices is the
-    warm one. Returns each job's device kernel names from its profile."""
+def twin_server(srv, spec, profile_fn):
+    """A server over ``srv``'s jobs and steps (the same weights, caches and
+    executables) that plans on another hardware model. Build it before
+    ``srv`` drains: it copies the pending slices."""
+    import dataclasses
+
+    from repro_torch.launch.serve import SharedPodServer, job_profile
+    twin = SharedPodServer(gpu_spec=spec, profile_fn=profile_fn,
+                           device=srv.device)
+    for name, job in srv.jobs.items():
+        twin.jobs[name] = dataclasses.replace(job)
+        twin.profiles[name] = job_profile(job, spec, profile_fn)
+        twin._exec[name] = srv._exec[name]
+    return twin
+
+
+def decisions(rounds) -> list:
+    """A drain's decisions: (pair, slices) a round, without the CP."""
+    return [(k1, k2, n1, n2) for k1, k2, n1, n2, _ in rounds]
+
+
+def drain_report(torch, srv, twin, res, res_twin, slices, label: str,
+                 passes: int = PASSES) -> dict:
+    """Print a drain's rounds on the H100 model beside the v5e model's
+    (``twin``) for the same jobs, each job's step timed alone, and the
+    spread of drain/serial over ``passes`` alternating passes in this call:
+    every job's ``slices`` run one after the other on one stream (serial),
+    the drain under the v5e decisions and the drain under the H100 ones
+    (one drain a pass where the two decide alike). Then each step's top
+    device kernels. Returns each job's device kernel names from its
+    profile."""
     rounds = res["rounds"]
-    for k1, k2, n1, n2, cp in rounds:
-        log(f"[{label}] round {k1} x {k2}: slices {n1}:{n2}, v5e-model "
-            f"predicted CP {cp:+.4f}")
-    log(f"[{label}] v5e-model predicted gain {res['predicted_gain']:+.4f}, "
-        f"v5e-model predicted makespan "
-        f"{res['plan']['predicted_makespan_cycles']:.0f} cycles")
+    for tag, r in (("H100", res), ("v5e", res_twin)):
+        for k1, k2, n1, n2, cp in r["rounds"]:
+            log(f"[{label}] {tag} model: round {k1} x {k2}: slices "
+                f"{n1}:{n2}, predicted CP {cp:+.4f}")
+        log(f"[{label}] {tag} model: predicted gain "
+            f"{r['predicted_gain']:+.4f}, predicted makespan "
+            f"{r['plan']['predicted_makespan_cycles']:.0f} cycles")
+    same = decisions(rounds) == decisions(res_twin["rounds"])
+    log(f"[{label}] decisions side by side (pair, slices), H100 | v5e: "
+        f"{decisions(rounds)} | {decisions(res_twin['rounds'])}"
+        + ("; the two models decide alike" if same else ""))
     solo = {name: time_ms(torch, srv._exec[name], 3) for name in srv.jobs}
     ran = {name: sum(n1 * (k1 == name) + n2 * (k2 == name)
                      for k1, k2, n1, n2, _ in rounds) for name in srv.jobs}
+    assert ran == slices, (ran, slices)
     serial_s = sum(ran[name] * solo[name] for name in srv.jobs) / 1e3
-    for name, n in ran.items():
-        srv.jobs[name].num_slices = n
-    warm = srv.drain()
-    assert warm["rounds"] == rounds
     log(f"[{label}] step alone: " + ", ".join(
         f"{name} {solo[name]:.3f} ms x {ran[name]} slices" for name in
-        srv.jobs) + f"; serial sum {serial_s:.4f} s; drain wall_s first "
-        f"{res['wall_s']:.4f} (drain/serial {res['wall_s'] / serial_s:.4f}),"
-        f" warm {warm['wall_s']:.4f} (drain/serial "
-        f"{warm['wall_s'] / serial_s:.4f})")
+        srv.jobs) + f"; their sum {serial_s:.4f} s; the counted drain's "
+        f"wall_s {res['wall_s']:.4f} (first on its streams), the v5e "
+        f"drain's {res_twin['wall_s']:.4f}")
+
+    def serial():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for name, n in slices.items():
+            for _ in range(n):
+                srv._exec[name]()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def drain(server, want):
+        for name, n in slices.items():
+            server.jobs[name].num_slices = n
+        r = server.drain(plan_first=False)
+        assert decisions(r["rounds"]) == want
+        return r["wall_s"]
+
+    runs = {"serial": [], "v5e": [], "H100": []}
+    kinds = ["serial", "H100"] if same else ["serial", "v5e", "H100"]
+    for i in range(passes):
+        for kind in (kinds if i % 2 == 0 else kinds[::-1]):
+            runs[kind].append(
+                serial() if kind == "serial" else
+                drain(srv, decisions(rounds)) if kind == "H100" else
+                drain(twin, decisions(res_twin["rounds"])))
+    for kind in kinds[1:]:
+        ratios = [d / t for d, t in zip(runs[kind], runs["serial"])]
+        med, lo, hi = median_range(ratios)
+        log(f"[{label}] drain/serial under the {kind} decisions over "
+            f"{passes} alternating passes: median {med:.4f}, range "
+            f"{lo:.4f}-{hi:.4f}; passes {[round(x, 4) for x in ratios]}")
+    med, lo, hi = median_range(runs["serial"])
+    log(f"[{label}] serial wall over the same passes: median {med:.4f} s, "
+        f"range {lo:.4f}-{hi:.4f} s")
     from torch.profiler import ProfilerActivity, profile
     seen = {}
     for name in srv.jobs:
@@ -331,15 +445,20 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.calibrate import calibrated_benchmarks
     from repro_torch.core.markov import MarkovModel, balanced_slice_sizes
-    from repro_torch.core.profiles import C2050
+    from repro_torch.core.engine import WorkloadEngine
+    from repro_torch.core.profiles import (C2050, H100, TPU_V5E,
+                                           h100_profile_from_costs,
+                                           tpu_profile_from_costs)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import coschedule as CS
     from repro_torch.kernels import rg_lru as LRU
     from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.kernels import sliced_matmul as SM
-    from repro_torch.launch.serve import Job, SharedPodServer
+    from repro_torch.launch.serve import Job, SharedPodServer, card_spec
     from repro_torch.models import recurrent as R
     from repro_torch.models import transformer as T
+    from repro_torch.runtime.daemon import ServingDaemon
+    from torch.profiler import ProfilerActivity, profile
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -351,26 +470,34 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     # ---- phase 1: device and build -------------------------------------
-    card = card_line()
+    card = nvidia_smi("name,power.limit")
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     log(card)
+    spec = card_spec(dev)
+    log(f"[device] H100 model: {spec.n_sm} SMs on this card "
+        f"(multi_processor_count; the module's constant {H100.n_sm}), "
+        f"maximum SM clock {nvidia_smi('clocks.max.sm')} (the module's "
+        f"{H100.freq_mhz:.0f} MHz), bw_per_sm {spec.bw_per_sm:.4f}")
     t0 = time.time()
     _build.build()
     log(f"[build] {len(_build.NAMES)} kernels, nvcc in parallel, "
         f"{time.time() - t0:.1f} s")
     for name in _build.NAMES:
         text = (_build.BUILD_DIR / f"{name}.log").read_text()
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+        for entry, regs, spill in ptxas_entries(text):
+            log(f"[ptxas {name}] {entry}: {regs}; {spill}")
+            if name == "flash_attention":
+                assert "0 bytes spill stores" in spill, (entry, spill)
 
     rows = {}
 
     # ---- phase 2a: K3 flash_attention -----------------------------------
     for (b, h, s, d, causal) in [(1, 2, 256, 64, True), (2, 1, 128, 128, True),
-                                 (1, 2, 256, 64, False), (1, 2, 100, 96, True)]:
+                                 (1, 2, 256, 64, False), (1, 2, 100, 96, True),
+                                 (1, 2, 100, 80, True),
+                                 (2, 1, 256, 160, False)]:
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             q, k, v = (randn((b, h, s, d), dt) for _ in range(3))
             err = max_err(torch, ops.flash_attention(q, k, v, causal=causal),
@@ -404,6 +531,54 @@ def main() -> int:
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     del q, k, v
+    # StableLM's head dims at the prefill shape: both paths, both masks;
+    # the tensor-core path timed beside its bound and SDPA
+    for d in K3_NEW_DIMS:
+        shape = (1, 32, 2048, d)
+        errs = []
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            q, k, v = (randn(shape, dt) for _ in range(3))
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q, k, v, causal=causal)
+                e = max_err(torch, got, want, tol)
+                rw, rr = rel_errs(got, want)
+                assert rw < K3_REL_TOL and rr < K3_REL_TOL, \
+                    f"K3 D={d} {dt} relative error {rw:.3e}, row {rr:.3e}"
+                errs.append((str(dt).split(".")[-1], causal, e, rw, rr))
+                del got, want
+        q, k, v = (randn(shape, torch.bfloat16) for _ in range(3))
+        ms_d = time_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                          causal=True), 20)
+        plain_d = time_ms(torch, lambda: ref.flash_attention(
+            q, k, v, causal=True), 5)
+        lib_d = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20)
+        b_d, by_d = bound(4.0 * d * pairs * bsz * heads,
+                          4 * q.numel() * q.element_size(), "bfloat16")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.flash_attention(q, k, v, causal=True)
+            ops.flash_attention(q[:, :2, :256].float(), k[:, :2, :256].float(),
+                                v[:, :2, :256].float())
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        for sym in (f"flash_fwd_wgmma_kernel<{d}>",
+                    f"flash_fwd_kernel<float, {d}>"):
+            assert sym in names, (sym, names)
+        rows["flash_attention"].update({
+            f"d{d}_max_abs_err": max(e[2] for e in errs), f"d{d}_ms": ms_d,
+            f"d{d}_plain_ms": plain_d, f"d{d}_bound_ms": b_d,
+            f"d{d}_library_ms": lib_d})
+        log(f"[K3 D={d}] {shape}: " + "; ".join(
+            f"{dt} {'causal' if c else 'full'} err {e:.3e}, relative "
+            f"{rw:.3e} whole, {rr:.3e} worst row" for dt, c, e, rw, rr in errs)
+            + f" (tol bf16 2e-2, f32 2e-4, relative {K3_REL_TOL:g}); bf16 "
+            f"causal kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms, sdpa "
+            f"{lib_d:.4f} ms, bound {b_d:.4f} ms ({by_d}: "
+            f"{4.0 * d * pairs * bsz * heads / 1e9:.1f} GFLOP); the profiler "
+            f"names flash_fwd_wgmma_kernel<{d}> and "
+            f"flash_fwd_kernel<float, {d}>")
+        del q, k, v
 
     # ---- phase 2b: K1 sliced_matmul -------------------------------------
     for (m, kk, n, ss) in [(256, 128, 256, 1), (128, 256, 384, 3),
@@ -489,19 +664,38 @@ def main() -> int:
               max_err(torch, st, st_want, BF16_TOL))
     del mm, st
     n_a, n_b = (n // 128) ** 2, 65536 // 256
+    # the H100 model's ratio for the same two kernels: each profiled from
+    # its FLOPs and bytes at the card's peaks, one block a CTA
+    k2_profs = {"matmul": h100_profile_from_costs(
+                    "matmul", 2.0 * n ** 3, 3 * n * n * 2, n_a),
+                "stream": h100_profile_from_costs(
+                    "stream", float(x.numel()), 2 * x.numel() * 2, n_b)}
+    cs = WorkloadEngine().scheduler_for(
+        spec, k2_profs, alpha_p=0.2, alpha_m=0.2,
+        cp_margin=0.0).find_coschedule(list(k2_profs))
+    assert cs.k2 is not None, f"the H100 model pairs nothing: {cs}"
+    runs_h = {cs.k1: round(cs.s1 / spec.n_sm), cs.k2: round(cs.s2 / spec.n_sm)}
+    h_a, h_b = max(1, runs_h["matmul"]), max(1, runs_h["stream"])
+    mm, st = ops.coschedule(a, bm, x, run_a=h_a, run_b=h_b)
+    err_h = max(max_err(torch, mm, mm_want, BF16_TOL),
+                max_err(torch, st, st_want, BF16_TOL))
+    err = max(err, err_h)
+    del mm, st
     # the schedules on the card once, so that the times are the kernel's
     # alone (ops.coschedule builds its schedule on the host every call)
     scheds = {"fused": CS.make_schedule(n_a, n_b, run_a, run_b),
+              "fused_h100": CS.make_schedule(n_a, n_b, h_a, h_b),
               "matmul": CS.make_schedule(n_a, 0),
               "stream": CS.make_schedule(0, n_b)}
     sched_dev = {k: CS.schedule_tensor(v, dev) for k, v in scheds.items()}
     k2_ms = {k: [] for k in scheds}
-    for order in (("fused", "matmul", "stream"), ("stream", "matmul", "fused")):
+    for order in (("fused", "fused_h100", "matmul", "stream"),
+                  ("stream", "matmul", "fused_h100", "fused")):
         for k in order:
             k2_ms[k].append(time_ms(torch, lambda: CS.launch(
                 a, bm, x, sched_dev[k], scale=2.0, bx=256), 5))
-    ms, mm_only, st_only = (sum(k2_ms[k]) / 2 for k in
-                            ("fused", "matmul", "stream"))
+    ms, ms_h, mm_only, st_only = (sum(k2_ms[k]) / 2 for k in
+                                  ("fused", "fused_h100", "matmul", "stream"))
     call_ms = time_ms(torch, lambda: ops.coschedule(a, bm, x, run_a=run_a,
                                                     run_b=run_b), 3)
     traced = {}
@@ -525,7 +719,8 @@ def main() -> int:
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         serial_ms=serial, matmul_ms=mm_only, stream_ms=st_only,
         fused_over_serial=ms / serial, overlap_share=ov["share"],
-        occupancy=occ)
+        occupancy=occ, h100_runs=[h_a, h_b], h100_fused_ms=ms_h,
+        h100_fused_over_serial=ms_h / serial)
     rows["coschedule"].update(
         stream_end_us=ov["stream_end_us"], stream_us=ov["stream_us"],
         peak_stream=ov["peak_stream"],
@@ -546,6 +741,17 @@ def main() -> int:
         f"the host, {call_ms:.4f} ms; plain {plain:.3f} ms; bound "
         f"{b_ms:.4f} ms ({b_by}; serial bound {serial_bound:.4f} ms, the "
         f"stream's {1e3 * st_bytes / HBM_BYTES_PER_S:.4f} ms)")
+    log(f"[K2 H100 model] find_coschedule on the H100 model (profiles "
+        f"from FLOPs and bytes at 989 TFLOP/s and 3.35 TB/s, one block a "
+        f"CTA: matmul PUR {k2_profs['matmul'].pur:.4f} MUR "
+        f"{k2_profs['matmul'].mur:.4f}, stream PUR "
+        f"{k2_profs['stream'].pur:.4f} MUR {k2_profs['stream'].mur:.4f}) "
+        f"picks {cs.k1} x {cs.k2} at s1={cs.s1}, s2={cs.s2} (w {cs.w1}:"
+        f"{cs.w2}, predicted CP {cs.cp:+.4f}): runs {h_a}:{h_b} (matmul:"
+        f"stream) against the C2050 model's {run_a}:{run_b}; err "
+        f"{err_h:.3e}; fused {ms_h:.4f} ms (turns {k2_ms['fused_h100']}) "
+        f"against {ms:.4f} ms at {run_a}:{run_b}; fused/serial "
+        f"{ms_h / serial:.4f} against {ms / serial:.4f}")
     log(f"[K2 trace] one traced fused launch: stream CTAs spent "
         f"{ov['share']:.4f} of their time beside a matmul CTA on the same "
         f"SM; {ov['met']:.4f} of them met one at all; stream CTAs ran on "
@@ -598,6 +804,27 @@ def main() -> int:
                   max_err(torch, state, want_s, K4_TOL["float32"]))
         log(f"[K4 decay] (1, 64, 2, {n}) f32, w_log = -4 a step, from a "
             f"given state: finite, out and final state err {err:.3e}")
+    # what the reference's kernel takes and the card's wrapper now widens:
+    # bf16 w_log and u, r/k/v of two dtypes, a bf16 state; and N = 16 and
+    # 48, padded to the 32 and 64 instances
+    for (b, s, h, n) in [(2, 64, 2, 32), (2, 80, 3, 16), (1, 64, 2, 48)]:
+        for dt in (torch.float32, torch.bfloat16):
+            tol = K4_TOL[str(dt).split(".")[-1]]
+            r, k, v, w_log, u = wkv_inputs(b, s, h, n, dt)
+            w_log, u = w_log.bfloat16(), u.bfloat16()
+            s0 = randn((b, h, n, n), torch.float32).bfloat16()
+            state = s0.clone()
+            got = ops.rwkv6_scan(r, k.float(), v, w_log, u, chunk=16,
+                                 state=state)
+            want, want_s = ref.rwkv6(r, k.float(), v, w_log, u, s0)
+            err = max_err(torch, got, want, tol)
+            err_s = max_err(torch, state, want_s, K4_TOL["bfloat16"])
+            pad = (f" (N padded to {WKV.padded_n(n)})"
+                   if n not in WKV.HEAD_DIMS else "")
+            log(f"[K4 widen] {(b, s, h, n)}{pad} r/v {dt}, k f32, bf16 "
+                f"w_log, u and state: out err {err:.3e} (tol "
+                f"{tol['atol']:g}), final bf16 state err {err_s:.3e} (tol "
+                f"5e-2)")
     shape = (4, 2048, 32, 64)
     b, s, h, n = shape
     r, k, v, w_log, u = wkv_inputs(b, s, h, n, torch.bfloat16)
@@ -625,7 +852,6 @@ def main() -> int:
     state = zeros.clone()
     ms = time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w_log, u,
                                                state=state), 20)
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             ops.rwkv6_scan(r, k, v, w_log, u, state=state)
@@ -769,9 +995,14 @@ def main() -> int:
     log(f"[handoff] scheduler runs {run_a}:{run_b} -> coschedule, and "
         "sliced_matmul at slice_size=4: both agree with their plain versions")
 
+    def h100_server():
+        return SharedPodServer(gpu_spec=spec,
+                               profile_fn=h100_profile_from_costs,
+                               use_reduced=False, device="cuda")
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    srv = SharedPodServer(use_reduced=False, device="cuda")
+    srv = h100_server()
     prefill = Job("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 4, 1,
                   2048)
     decode = Job("tenantB-phi3-decode", "phi3-mini-3.8b", "decode", 8, 8,
@@ -779,6 +1010,8 @@ def main() -> int:
     srv.submit(prefill)
     srv.submit(decode)
     t_submit = time.time() - t0
+    slices = {name: job.num_slices for name, job in srv.jobs.items()}
+    twin = twin_server(srv, TPU_V5E, tpu_profile_from_costs)
     res = srv.drain()
     launches = dict(ops.LAUNCHES)
     rounds = res["rounds"]
@@ -795,15 +1028,30 @@ def main() -> int:
     for name, lg in logits.items():
         assert bool(torch.isfinite(lg.float()).all()), f"{name}: non-finite"
     log(f"[serve] phi3-mini-3.8b full width (32 layers, d_model 3072), bf16, "
-        f"seeded random weights; {len(srv.jobs)} tenants submitted in "
-        f"{t_submit:.2f} s (warm-up included); drain wall_s "
+        f"seeded random weights, on the H100 model; {len(srv.jobs)} tenants "
+        f"submitted in {t_submit:.2f} s (warm-up included); drain wall_s "
         f"{res['wall_s']:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"flash_attention launches {launches['flash_attention']} = "
         f"{n_layers} x {runs} prefill slices (warm-up included)")
     log(f"[main path] dense launches {launches}")
-    drain_report(torch, srv, res, "serve")
-    del srv, logits, res
+    res_twin = twin.drain()
+    drain_report(torch, srv, twin, res, res_twin, slices, "serve")
+    with tempfile.TemporaryDirectory() as store_dir:
+        dmn = ServingDaemon(str(Path(store_dir) / "serve.sqlite"),
+                            pod_id="chip-smoke")
+        for name, n in slices.items():
+            srv.jobs[name].num_slices = n
+        res_d = srv.drain(daemon=dmn, plan_first=False)
+        final = dmn.store.state(res_d["job_id"])
+        dmn.close()
+    assert res_d["state"] == final == "finished", (res_d["state"], final)
+    assert decisions(res_d["rounds"]) == decisions(rounds)
+    log(f"[serve daemon] one drain under the port's ServingDaemon (job "
+        f"store in a temporary directory): job {res_d['job_id']!r} ends "
+        f"{final!r} after {len(res_d['rounds'])} rounds, wall_s "
+        f"{res_d['wall_s']:.4f}")
+    del srv, twin, logits, res, res_twin
     torch.cuda.empty_cache()
 
     # ---- phase 3b: the recurrent path, counted -----------------------------
@@ -825,10 +1073,12 @@ def main() -> int:
                 4096)]
     ops.reset_launches()
     t0 = time.time()
-    srv = SharedPodServer(use_reduced=False, device="cuda")
+    srv = h100_server()
     for job in jobs:
         srv.submit(job, params=weights[job.arch])
     t_submit = time.time() - t0
+    slices = {name: job.num_slices for name, job in srv.jobs.items()}
+    twin = twin_server(srv, TPU_V5E, tpu_profile_from_costs)
     res = srv.drain()
     rec_launches = dict(ops.LAUNCHES)
     rounds = res["rounds"]
@@ -856,22 +1106,97 @@ def main() -> int:
         f"(26 rglru + 12 local layers, d_model 4096, "
         f"{n_params['recurrentgemma-9b'] / 1e9:.3f} B params) at full width, "
         f"bf16, seeded random weights built in {t_init:.2f} s, each shared by "
-        f"its arch's two tenants; {len(srv.jobs)} tenants submitted in "
-        f"{t_submit:.2f} s (warm-up included); drain wall_s "
+        f"its arch's two tenants, on the H100 model; {len(srv.jobs)} tenants "
+        f"submitted in {t_submit:.2f} s (warm-up included); drain wall_s "
         f"{res['wall_s']:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; rwkv6_scan "
         f"launches {rec_launches['rwkv6_scan']} = {n_wkv} x {runs_c} prefill "
         f"slices, rg_lru launches {rec_launches['rg_lru']} = {n_lru} x "
         f"{runs_e} prefill slices (warm-up included)")
     log(f"[main path] recurrent launches {rec_launches}")
-    seen = drain_report(torch, srv, res, "serve-rec")
+    res_twin = twin.drain()
+    seen = drain_report(torch, srv, twin, res, res_twin, slices, "serve-rec")
     names = " ".join(seen[jobs[0].name])
     assert all(k in names for k in K4_KERNELS) and "wkv6_kernel" not in names, \
         f"the RWKV6 prefill step did not run K4's two passes: {names}"
     names = " ".join(seen[jobs[2].name])
     assert K5_KERNEL in names and K5_OLD_KERNEL not in names, \
         f"the RecurrentGemma prefill step did not run K5's kernel: {names}"
-    launches = {name: launches[name] + rec_launches[name]
+    del srv, twin, weights, res, res_twin
+    torch.cuda.empty_cache()
+
+    # ---- phase 3c: StableLM, counted -------------------------------------
+    slm_launches = dict.fromkeys(_build.NAMES, 0)
+    slm = {"stablelm-3b": [
+               Job("tenantG-slm3b-prefill", "stablelm-3b", "prefill", 2, 1,
+                   2048),
+               Job("tenantH-slm3b-decode", "stablelm-3b", "decode", 2, 8,
+                   4096)],
+           "stablelm-12b": [
+               Job("tenantI-slm12b-prefill", "stablelm-12b", "prefill", 2, 1,
+                   2048)]}
+    for arch, arch_jobs in slm.items():
+        cfg = get_config(arch)
+        t0 = time.time()
+        wts = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        srv = h100_server()
+        for job in arch_jobs:
+            srv.submit(job, params=wts)
+        res = srv.drain()
+        for name in _build.NAMES:
+            slm_launches[name] += ops.LAUNCHES[name]
+        assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
+        runs = prefill_runs(res["rounds"], arch_jobs[0].name)
+        flash = ops.LAUNCHES["flash_attention"]
+        assert flash == cfg.num_layers * runs, (arch, flash, runs)
+        logits = {name: srv._exec[name]() for name in srv.jobs}
+        torch.cuda.synchronize()
+        for job in arch_jobs:
+            want = ((job.batch_per_slice, job.seq, cfg.vocab_size)
+                    if job.phase == "prefill" else
+                    (job.batch_per_slice, cfg.vocab_size))
+            lg = logits[job.name]
+            assert tuple(lg.shape) == want, (job.name, lg.shape)
+            assert bool(torch.isfinite(lg.float()).all()), \
+                f"{job.name}: non-finite"
+        log(f"[serve-slm] {arch} full width ({cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}, head dim {cfg.head_dim}, "
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv), bf16, seeded "
+            f"random weights ({T.count_params(wts) / 1e9:.3f} B params, built "
+            f"in {t_init:.2f} s), on the H100 model: rounds "
+            f"{decisions(res['rounds'])}, drain wall_s {res['wall_s']:.4f}; "
+            f"flash_attention launches {flash} = {cfg.num_layers} x {runs} "
+            f"prefill runs (warm-up included); logits "
+            + ", ".join(f"{n} {tuple(lg.shape)}" for n, lg in logits.items())
+            + f" finite; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        step = arch_jobs[0].name
+        alone = time_ms(torch, srv._exec[step], 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            srv._exec[step]()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in evs)
+        k3 = [e for e in evs if f"flash_fwd_wgmma_kernel<{cfg.head_dim}>"
+              in e.key]
+        assert sum(e.count for e in k3) == cfg.num_layers, \
+            [e.key for e in evs]
+        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
+        log(f"[profile {step}] step alone {alone:.3f} ms; device time "
+            f"{total / 1e3:.3f} ms in {sum(e.count for e in evs)} kernels "
+            f"(idle {1 - total / 1e3 / alone:.1%}); K3 "
+            f"flash_fwd_wgmma_kernel<{cfg.head_dim}> {k3_ms:.3f} ms x"
+            f"{cfg.num_layers} ({k3_ms / (total / 1e3):.1%})")
+        del srv, wts, logits, res
+        torch.cuda.empty_cache()
+    log(f"[main path] stablelm launches {slm_launches}")
+    launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
                 for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
@@ -904,8 +1229,12 @@ def main() -> int:
                                                "event_ms", "bf16_ms",
                                                "bf16_err", "clusters",
                                                "ctas_per_sm",
-                                               "rel_err", "row_rel_err")
-                           if k in row}})
+                                               "rel_err", "row_rel_err",
+                                               "h100_runs", "h100_fused_ms",
+                                               "h100_fused_over_serial")
+                           if k in row},
+                        **{k: v for k, v in row.items()
+                           if k.startswith(("d80_", "d160_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

@@ -3,13 +3,18 @@
 waste, MLA decode mode, MoE capacity padding, remat recompute). Used by the
 roofline analysis and by the Kernelet serving profiles.
 
-Constants: TPU v5e — 197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI.
+Constants: TPU v5e — 197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI;
+NVIDIA H100 SXM — 989 TFLOP/s dense bf16, 3.35 TB/s HBM3 (data sheet, at its
+700 W power limit), the peaks of ``profiles.h100_profile_from_costs``.
 """
 from __future__ import annotations
 
 PEAK_FLOPS = 197e12
 HBM_BW = 819e9
 LINK_BW = 50e9
+
+H100_PEAK_FLOPS = 989e12
+H100_HBM_BW = 3.35e12
 
 
 def _ffn_mult(act: str) -> int:

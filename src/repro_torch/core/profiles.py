@@ -12,14 +12,17 @@ model reproduce Table-4-like utilization by construction), and block counts /
 occupancies are taken directly from Tables 3-4.
 
 ``GPUSpec`` also hosts the *virtual SM* reduction (Kepler multi-scheduler ->
-single-scheduler model, §4.4) and the TPU adaptation (a v5e core modeled as
-one "scheduler" whose units are in-flight Pallas grid slices).
+single-scheduler model, §4.4), the TPU adaptation (a v5e core modeled as
+one "scheduler" whose units are in-flight Pallas grid slices) and the H100
+that the PyTorch port runs on (``H100``, ``h100_profile_from_costs``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+
+from repro_torch.core.costs import H100_HBM_BW, H100_PEAK_FLOPS
 
 
 def content_digest(spec) -> str:
@@ -101,7 +104,26 @@ TPU_V5E = GPUSpec("TPUv5e", n_sm=1, units_per_sm=4, n_schedulers=1,
                   peak_ipc=1.0, mem_latency=8.0, bw_per_sm=0.5,
                   uncoal_factor=2.0, launch_overhead=100.0, freq_mhz=940)
 
-GPUS = {g.name: g for g in (C2050, GTX680, TPU_V5E)}
+# NVIDIA H100 SXM5 (Hopper; data sheet): 132 SMs, 4 warp schedulers and at
+# most 32 resident blocks an SM, 1980 MHz maximum SM clock. bw_per_sm is HBM
+# bytes/s over (SMs x clock) in 128-byte requests, the rule that puts C2050
+# (144 GB/s, 14 SMs, 1147 MHz) at 0.0701 beside its 0.0699. The module's
+# n_sm stays 132 so that content digests are the same on every host; a
+# caller with a card may replace it with the card's multi_processor_count
+# (``launch.serve.card_spec``).
+H100_N_SM = 132
+H100_FREQ_MHZ = 1980.0
+# Placeholders until measured on the card: mem_latency, uncoal_factor,
+# launch_overhead and contention are C2050's, dep_latency and the power
+# coefficients (idle_watts .. uncoal_penalty) the GPUSpec defaults.
+H100 = GPUSpec("H100", n_sm=H100_N_SM, units_per_sm=32, n_schedulers=4,
+               peak_ipc=4.0, mem_latency=400.0,
+               bw_per_sm=H100_HBM_BW / (H100_N_SM * H100_FREQ_MHZ * 1e6)
+               / 128,
+               uncoal_factor=6.0, launch_overhead=1000.0, contention=12.0,
+               freq_mhz=H100_FREQ_MHZ)
+
+GPUS = {g.name: g for g in (C2050, GTX680, TPU_V5E, H100)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,3 +222,12 @@ def tpu_profile_from_costs(name: str, flops: float, bytes_hbm: float,
     return KernelProfile(name, rm=min(max(rm, 0.002), 0.98), coal=1.0,
                          insns_per_block=4000.0, num_blocks=num_blocks,
                          occupancy=1.0, pur=pur, mur=mur)
+
+
+def h100_profile_from_costs(name: str, flops: float, bytes_hbm: float,
+                            num_blocks: int, *, peak_flops=H100_PEAK_FLOPS,
+                            hbm_bw=H100_HBM_BW) -> KernelProfile:
+    """``tpu_profile_from_costs`` at the H100's peaks: the step's compute
+    and memory roofline terms on the card give its R_m, PUR and MUR."""
+    return tpu_profile_from_costs(name, flops, bytes_hbm, num_blocks,
+                                  peak_flops=peak_flops, hbm_bw=hbm_bw)

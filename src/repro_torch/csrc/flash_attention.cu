@@ -7,7 +7,8 @@
 // accumulator in f32 registers. Same numerics as the reference: scale
 // 1/sqrt(D) after the dot, mask -1e30 on global positions, out = acc /
 // max(l, 1e-30). One launch per call; any S, the ragged edge masked; D in
-// {32, 64, 96, 128} as a template parameter (96 is Phi-3's head_dim).
+// {32, 64, 80, 96, 128, 160} as a template parameter (96 is Phi-3's head_dim,
+// 80 StableLM-3B's, 160 StableLM-12B's).
 //
 // Two paths, chosen by dtype alone:
 // - bf16, flash_fwd_wgmma_kernel: one CTA per (b*h, 128-row q tile), causal
@@ -20,7 +21,22 @@
 //   reduced across the row's four lanes), then O += P V by wgmma.m64nDk16
 //   with P converted to bf16 in registers as the A operand and V read
 //   MN-major (transpose bit). Every tile is stored in TMA's 64-byte swizzle
-//   in 32-column boxes, which fits each D of the four (96 = 3 x 32).
+//   in 32-column boxes: D / 32 of them where 32 divides D (160 = 5 x 32).
+//   D = 80 is not a whole number of boxes. Of the two ways to take it -- a
+//   16-column tail box in the 32-byte swizzle with descriptors of its own,
+//   or the 96-column tile of D = 96 with columns 80-95 left to TMA's zero
+//   fill -- the kernel takes the second, because the first would need a
+//   second swizzle mode, its own descriptors and a P V split in two, where
+//   the second changes no descriptor: the tensor maps keep an inner
+//   dimension of 80 (rows of 160 bytes, a multiple of 16), so the third box
+//   of every row reads 16 real columns and 16 zeros. It is exact: Q K^T
+//   runs only the D / 16 = 5 steps of real columns (the zeros would add
+//   nothing), and P V runs m64n80k16, whose B operand is the first 80
+//   columns of the 96-wide V tile (on the card it gave the errors that
+//   m64n96k16 over the whole tile gives). It costs the 16 zero columns'
+//   shared memory and TMA traffic, none of device memory's bytes. D = 160's Q tile (40 KB) and two stages
+//   of K and V (20 KB each a stage) take 120 KB; its O accumulator is 80 f32
+//   a thread beside the 32 scores.
 // - f32, flash_fwd_kernel: f32 FMA on the CUDA cores, 64-row q tiles, four
 //   threads a row (no model runs attention in f32).
 //
@@ -200,8 +216,10 @@ constexpr int WG_THREADS = repro::sm90::TILE_THREADS_WG;
 
 template <int D>
 struct WgSmem {
-  static constexpr uint32_t Q_BYTES = WG_BQ * D * 2;    // D / 32 boxes of 128 rows x 64 B
-  static constexpr uint32_t KV_BYTES = WG_BKV * D * 2;  // D / 32 boxes of 64 rows x 64 B
+  static constexpr int DP = (D + BOX - 1) / BOX * BOX;  // D padded to whole boxes
+  static constexpr int NB = DP / BOX;
+  static constexpr uint32_t Q_BYTES = WG_BQ * DP * 2;    // NB boxes of 128 rows x 64 B
+  static constexpr uint32_t KV_BYTES = WG_BKV * DP * 2;  // NB boxes of 64 rows x 64 B
   static constexpr uint32_t BARS = Q_BYTES + KV_STAGES * 2 * KV_BYTES;
   static constexpr size_t bytes = BARS + 8 * (1 + 2 * KV_STAGES) + 1024;
 };
@@ -213,9 +231,9 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
                        __grid_constant__ const CUtensorMap map_v, __nv_bfloat16* __restrict__ O,
                        int S, float scale, int causal) {
   using namespace repro::sm90;
-  static_assert(D % BOX == 0, "D must be a multiple of 32");
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
   using L = WgSmem<D>;
-  constexpr int NB = D / BOX;
+  constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(align_smem(smem_raw));
   const uint32_t q_bar = base + L::BARS;
@@ -268,7 +286,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   const int row1 = row0 + 8;
   const int cq = 2 * (lane % 4);
-  float o[D / 2];
+  float o[D / 2];  // P V is m64nDk16: columns past D are never formed
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
@@ -288,6 +306,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {  // 16 of D a step: box kk / 2, 32 bytes in for odd kk
+                                           // (padding columns past D are never read)
       const uint32_t off = (kk % 2) * 32;
       wgmma_ss_n64(sc, make_desc(q_s + (kk / 2) * WG_BQ * 64 + off, 16, 512, SWIZZLE_64B),
                    make_desc(k_s + (kk / 2) * WG_BKV * 64 + off, 16, 512, SWIZZLE_64B), 1);
@@ -405,7 +424,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
                 int causal, cudaStream_t stream) {
-  // (D, S, B*H) in boxes of (32, rows, 1), 64-byte swizzle
+  // (D, S, B*H) in boxes of (32, rows, 1), 64-byte swizzle; at D = 80 the
+  // third box of a row runs past D and TMA fills columns 80-95 with zeros
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
@@ -448,8 +468,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (d) {
     case 32: return launch<32>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 64: return launch<64>(q, k, v, o, bh, s, scale, causal, dtype, st);
+    case 80: return launch<80>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 96: return launch<96>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 128: return launch<128>(q, k, v, o, bh, s, scale, causal, dtype, st);
+    case 160: return launch<160>(q, k, v, o, bh, s, scale, causal, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,7 +6,9 @@ one launch per call, looping over KV tiles only up to the diagonal when
 causal, with f32 m/l/acc in registers and the reference's mask constant and
 final division. The dtype alone picks the path: bf16 runs ``wgmma`` on the
 tensor cores (128-row q tiles, 64-key K/V tiles in a TMA ring), f32 runs FMA
-on the CUDA cores (64-row q tiles). The plain version is
+on the CUDA cores (64-row q tiles). D is one of ``HEAD_DIMS``; D = 80
+(StableLM-3B) runs in the 96-column tile, TMA filling columns 80-95 with
+zeros. The plain version is
 ``repro_torch.kernels.ref.flash_attention``;
 ``repro_torch.kernels.ops.flash_attention`` picks between the two by device.
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 96, 128)      # template instances in csrc/flash_attention.cu
+# template instances in csrc/flash_attention.cu
+HEAD_DIMS = (32, 64, 80, 96, 128, 160)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": (

@@ -12,11 +12,14 @@ per job, and synchronises at the end of the round: the two jobs' kernels
 share the SMs, which is the paper's concurrent kernel execution. On the
 CPU the slices run in order.
 
-The scheduler still reasons about a TPU v5e: profiles come from
-``TPU_V5E`` and ``tpu_profile_from_costs``, exactly as in the reference, so
-the ``rounds`` list equals the reference server's. Predicted CP and makespan
-are v5e-model predictions, not H100 figures; an H100 ``GPUSpec`` is ROADMAP
-queue 1, item 4.
+The hardware model is the caller's: ``gpu_spec`` and ``profile_fn``
+default to ``TPU_V5E`` and ``tpu_profile_from_costs``, exactly as in the
+reference, so the ``rounds`` list equals the reference server's; the card's
+own model is ``gpu_spec=H100, profile_fn=h100_profile_from_costs`` (what
+``demo()`` and ``chip_smoke.py`` pass). A job's slice is one step of its
+model, which covers every SM once, so its profile has ``num_slices x n_sm``
+blocks: the engine's plan, the scheduler's s1:s2 (multiples of ``n_sm``) and
+the drain's rounds (``s / n_sm`` slices) then count the same thing.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --demo
 """
@@ -36,7 +39,8 @@ from repro_torch.core.engine import LaneSpec, WorkloadEngine, run_fleet
 from repro_torch.core.jobstore import (CANCELLED, FINISHED, PAUSED, QUEUED,
                                        RUNNING, JobStoreError, StaleLease)
 from repro_torch.core.markov import MarkovModel
-from repro_torch.core.profiles import (TPU_V5E, KernelProfile,
+from repro_torch.core.profiles import (H100, TPU_V5E, GPUSpec, KernelProfile,
+                                       h100_profile_from_costs,
                                        tpu_profile_from_costs)
 from repro_torch.core.simulator import IPCTable
 from repro_torch.data.synthetic import make_batch, poisson_arrivals
@@ -54,12 +58,31 @@ class Job:
     seq: int = 64
 
 
+def job_profile(job: Job, spec: GPUSpec,
+                profile_fn=tpu_profile_from_costs) -> KernelProfile:
+    """A tenant's profile for the scheduler on ``spec``. It is taken at FULL
+    scale: the tenant's real job is the full config, whose analytic
+    FLOPs/bytes give the PUR/MUR the scheduler reasons about (reduced-config
+    costs would all look memory-bound). One slice is ``spec.n_sm`` blocks,
+    one a SM."""
+    shape = SHAPES[{"prefill": "prefill_32k", "decode": "decode_32k",
+                    "train": "train_4k"}[job.phase]]
+    cost = cell_cost(get_config(job.arch), shape)
+    blocks = job.num_slices * spec.n_sm
+    prof = profile_fn(job.name, cost["flops"], cost["hbm_bytes"],
+                      num_blocks=blocks)
+    return dataclasses.replace(prof, insns_per_block=1000.0,
+                               num_blocks=blocks)
+
+
 class SharedPodServer:
     """Kernelet executor over a queue of tenant jobs."""
 
-    def __init__(self, *, gpu_spec=TPU_V5E, seed: int = 0,
+    def __init__(self, *, gpu_spec=TPU_V5E,
+                 profile_fn=tpu_profile_from_costs, seed: int = 0,
                  use_reduced: bool = True, device=None):
         self.spec = gpu_spec
+        self.profile_fn = profile_fn
         self.model = MarkovModel(gpu_spec.virtual(), three_state=True)
         self.jobs: Dict[str, Job] = {}
         self.profiles: Dict[str, KernelProfile] = {}
@@ -99,18 +122,7 @@ class SharedPodServer:
                 return logits
         run()                               # warm-up: builds the kernels
         self._sync()
-        # profile at FULL scale: the tenant's real job is the full config;
-        # its analytic FLOPs/bytes give the PUR/MUR the scheduler reasons
-        # about (reduced-config costs would all look memory-bound)
-        shape = SHAPES[{"prefill": "prefill_32k", "decode": "decode_32k",
-                        "train": "train_4k"}[job.phase]]
-        cost = cell_cost(full_cfg, shape)
-        prof = tpu_profile_from_costs(
-            job.name, cost["flops"], cost["hbm_bytes"],
-            num_blocks=job.num_slices)
-        # slice-level book-keeping: one block == one microbatch slice
-        prof = dataclasses.replace(prof, insns_per_block=1000.0,
-                                   num_blocks=job.num_slices)
+        prof = job_profile(job, self.spec, self.profile_fn)
         self.jobs[job.name] = job
         self.profiles[job.name] = prof
         self._exec[job.name] = run
@@ -409,23 +421,37 @@ class SharedPodServer:
         return float(np.average(cps, weights=weights))
 
 
+def card_spec(device) -> GPUSpec:
+    """``H100`` with the card's own SM count where a card is present."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return dataclasses.replace(H100, n_sm=n_sm)
+
+
 def demo(device=None):
-    server = SharedPodServer(device=device)
+    """The reference's demo tenants on the H100 model (``tenantB-dsv2-
+    decode`` waits for MoE and MLA, ROADMAP items 7 and 9)."""
+    dev = resolve_device(device)
+    server = SharedPodServer(gpu_spec=card_spec(dev),
+                             profile_fn=h100_profile_from_costs, device=dev)
     server.submit(Job("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 24))
+    server.submit(Job("tenantC-rwkv-prefill", "rwkv6-1.6b", "prefill", 16))
     server.submit(Job("tenantD-sc2-decode", "starcoder2-15b", "decode", 16))
     for ev in server.log:
         print("submitted", ev[1],
               f"PUR={ev[2]:.2f} MUR={ev[3]:.2f} R_m={ev[4]:.2f}")
     res = server.drain()
     if res["plan"]:
-        print(f"engine plan (v5e model): predicted makespan "
+        print(f"engine plan (H100 model): predicted makespan "
               f"{res['plan']['predicted_makespan_cycles']:.0f} cycles over "
               f"{len(res['plan']['time_line'])} phases "
               f"({res['plan']['n_coschedules']} co-scheduled)")
     for k1, k2, n1, n2, cp in res["rounds"]:
         print(f"co-schedule {k1} x {k2}: slices {n1}:{n2}  "
-              f"v5e-model predicted CP={cp:+.3f}")
-    print(f"drained in {res['wall_s']:.1f}s; mean v5e-model predicted "
+              f"H100-model predicted CP={cp:+.3f}")
+    print(f"drained in {res['wall_s']:.1f}s; mean H100-model predicted "
           f"co-scheduling profit {res['predicted_gain']:+.1%}")
 
 

@@ -133,3 +133,48 @@ def test_trace_report_reads_the_trace(smoke):
     assert got["mm_resident_during"] == pytest.approx((40 + 40) / 100)
     alone = smoke.trace_report([(3, 5, 15, 0)])
     assert alone["share"] == 0.0 and alone["mm_us_after"] == pytest.approx(0.01)
+
+
+@pytest.mark.parametrize("d,want_ms", [(80, 0.0217), (160, 0.0434)])
+def test_bound_of_stablelm_head_dims(smoke, d, want_ms):
+    """K3 at (1, 32, 2048, D) bf16 causal for StableLM's head dims: 21.5
+    and 42.9 GFLOP, held by the tensor cores."""
+    flops = 4.0 * d * (2048 * 2049 // 2) * 32
+    assert flops / 1e9 == pytest.approx(21.5 * d / 80, rel=2e-3)
+    ms, by = smoke.bound(flops, 4 * 32 * 2048 * d * 2, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(want_ms, abs=5e-5)
+
+
+# nvcc -Xptxas -v's lines for two of K3's instances, the second one's spill
+# counts made nonzero to show that each entry keeps its own
+PTXAS = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__04cf38d3_18_flash\
+_attention_cu_2c13897922flash_fwd_wgmma_kernelILi160EEEv14CUtensorMap_stS1_S1_\
+P13__nv_bfloat16ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__04cf38d3_18_flash_a
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__04cf38d3_18_flash\
+_attention_cu_2c13897916flash_fwd_kernelIfLi80EEEvPKT_S3_S3_PS1_ifi' for \
+'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 100 registers, used 1 barriers
+"""
+
+
+def test_ptxas_entries_name_each_instance(smoke):
+    """The mangled name is cut to the kernel and its template arguments
+    (the hash before the name's length does not leak in), and each
+    instance keeps its own register and spill lines."""
+    assert smoke.ptxas_entries(PTXAS) == [
+        ("flash_fwd_wgmma_kernelILi160E", "Used 167 registers, used 1 "
+         "barriers", "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+         "spill loads"),
+        ("flash_fwd_kernelIfLi80E", "Used 100 registers, used 1 barriers",
+         "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads")]
+
+
+@pytest.mark.parametrize("xs,want", [([3.0, 1.0, 2.0], (2.0, 1.0, 3.0)),
+                                     ([4, 1, 3, 2], (2.5, 1, 4))])
+def test_median_range(smoke, xs, want):
+    assert smoke.median_range(xs) == want

@@ -99,6 +99,44 @@ def test_flash_attention_bf16_matches_plain(cuda, d, causal, s):
         ref.flash_attention(q, k, v, causal=causal), **TOL[torch.bfloat16])
 
 
+def test_stablelm_head_dims_run_their_own_instances(cuda):
+    """The profiler names the D = 80 and D = 160 instances of both paths."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for d in (80, 160):
+            q = torch.randn(1, 2, 256, d, device=cuda)
+            ops.flash_attention(q, q, q)
+            ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    for d in (80, 160):
+        assert f"flash_fwd_wgmma_kernel<{d}>" in names, names
+        assert f"flash_fwd_kernel<float, {d}>" in names, names
+
+
+def test_stablelm_3b_prefill_at_full_width(cuda):
+    """One prefill step of full-width stablelm-3b (32 layers of D = 80),
+    bf16, seeded random weights, at (1, 512): K3 runs once a layer and the
+    logits are finite."""
+    cfg = get_config("stablelm-3b")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), device=cuda)
+    ops.reset_launches()
+    logits, _, _ = T.forward(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert tuple(logits.shape) == (1, 512, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_port_daemon_names_the_h100(cuda):
+    """The port's daemon resolves its own chip by name."""
+    from repro_torch.core.profiles import H100
+    from repro_torch.runtime.daemon import resolve_gpu
+    assert resolve_gpu("H100") is H100
+
+
 def test_bf16_runs_on_the_tensor_cores(cuda):
     """A bf16 call of K1, K2 and K3 runs the wgmma kernels and not the FMA
     ones, which only f32 reaches."""
@@ -240,15 +278,54 @@ def test_rwkv6_scan_extreme_decay_matches_oracle(cuda, n, s):
 
 
 def test_rwkv6_scan_checks_each_dtype(cuda):
-    """K4 takes bf16 r/k/v beside f32 w_log/u/state and casts nothing: a
-    bf16 w_log, or r/k/v of two dtypes, raise."""
-    x = torch.zeros(1, 32, 2, 32, device=cuda)
-    u = torch.zeros(2, 32, device=cuda)
-    xb = x.bfloat16()
-    ops.rwkv6_scan(xb, xb, xb, x, u)
-    for args in ((xb, xb, xb, xb, u), (xb, x, xb, x, u)):
-        with pytest.raises(ValueError):
-            ops.rwkv6_scan(*args)
+    """K4 takes what the reference's kernel takes: bf16 or f32 w_log and u,
+    r/k/v of one dtype or of two, each against the sequential oracle on the
+    same values (f32 1e-3, bf16 5e-2); an N above 64 raises, naming the Ns
+    the card covers."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    r, k, v = (randn(1, 64, 2, 32) for _ in range(3))
+    w_log = -torch.exp(randn(1, 64, 2, 32) - 1.0)
+    u = randn(2, 32) * 0.1
+    b16 = torch.bfloat16
+    for args, tol in (((r.to(b16), k.to(b16), v.to(b16), w_log, u), 5e-2),
+                      ((r, k, v, w_log.to(b16), u.to(b16)), 1e-3),
+                      ((r.to(b16), k, v.to(b16), w_log.to(b16), u), 5e-2)):
+        want, _ = ref.rwkv6(*args)
+        torch.testing.assert_close(ops.rwkv6_scan(*args), want, atol=tol,
+                                   rtol=tol)
+    x = torch.zeros(1, 32, 2, 80, device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 80, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 48])
+def test_rwkv6_scan_pads_a_smaller_n(cuda, n, dtype):
+    """N = 16 and 48 run on the 32 and 64 instances, padded with channels
+    that leave the real ones untouched: out and a given state (bf16 here,
+    overwritten in place) against the sequential oracle, from bf16 w_log
+    and u. S = 80 leaves a ragged last chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    r, k, v = (randn(2, 80, 3, n).to(dtype) for _ in range(3))
+    w_log = (-torch.exp(randn(2, 80, 3, n) - 1.0)).bfloat16()
+    u = (randn(3, n) * 0.1).bfloat16()
+    s0 = randn(2, 3, n, n).bfloat16()
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 \
+        else dict(atol=1e-3, rtol=1e-3)
+    want, want_s = ref.rwkv6(r, k, v, w_log, u, s0)
+    state = s0.clone()
+    got = ops.rwkv6_scan(r, k, v, w_log, u, chunk=16, state=state)
+    assert got.shape == (2, 80, 3, n) and got.is_contiguous()
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(state.float(), want_s, atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 256, 512), (1, 128, 1024),

@@ -82,6 +82,26 @@ def test_flash_attention_matches_reference(b, h, s, d, causal, dtype):
                                        bk=128)), **tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [80, 160])
+def test_flash_attention_stablelm_head_dims_match_reference(d, causal,
+                                                            dtype):
+    """StableLM's head dims (3B: 80, 12B: 160), which K3 now takes on the
+    card: the plain version against the reference's Pallas kernel in
+    interpret mode, as tests/test_kernels.py:52-58 runs it, with its
+    tolerances (f32 2e-4, bf16 2e-2)."""
+    rng = np.random.default_rng(10)
+    (jq, tq), (jk, tk), (jv, tv) = (pair(rng, (1, 2, 256, d), dtype)
+                                    for _ in range(3))
+    assert d in FA.HEAD_DIMS
+    np.testing.assert_allclose(
+        as_f32(ops.flash_attention(tq, tk, tv, causal=causal, bq=128,
+                                   bk=128)),
+        as_f32(jax_ops.flash_attention(jq, jk, jv, causal=causal, bq=128,
+                                       bk=128)), **tol(dtype))
+
+
 @pytest.mark.parametrize("n_a,n_b,run_a,run_b", [(4, 4, 1, 1), (6, 2, 2, 1),
                                                  (3, 7, 1, 3), (0, 5, 2, 2),
                                                  (4096, 256, 8, 8)])

@@ -1,6 +1,8 @@
 """The port's model layers, attention and transformer against the reference
 package on the same inputs (numpy from a seed) and the same weights
 (``repro_torch.convert.params_from_jax``), in f32 on the CPU."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -185,6 +188,54 @@ def test_params_layout_and_init():
     w = tp["stage0"]["sub0"]["attn"]["wq"].float()
     assert float(w.abs().max()) <= 2.0 / np.sqrt(tcfg.d_model) + 1e-6
     assert abs(float(w.std()) * np.sqrt(tcfg.d_model) - 0.88) < 0.05
+
+
+@pytest.mark.parametrize("arch,kv", [("stablelm-3b", 4), ("stablelm-12b", 2)])
+def test_stablelm_logits_at_full_head_dims_match(arch, kv, monkeypatch):
+    """Reduced stablelm-3b and stablelm-12b with their full head dims kept
+    (80 and 160) and everything else narrow (12B keeps grouped KV: 4 heads
+    over 2): logits against JAX ``forward`` on converted f32 weights
+    (2e-4, as test_forward_logits_match), every layer's prefill through
+    ``ops.flash_attention`` at that head dim."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(reduced(full), head_dim=full.head_dim,
+                              num_kv_heads=kv)
+    tcfg = dataclasses.replace(reduced(tconfigs.get_config(arch)),
+                               head_dim=full.head_dim, num_kv_heads=kv)
+    jp = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda q, *a, **kw:
+                        calls.append(q.shape[-1]) or real(q, *a, **kw))
+    raw = make_batch(cfg, 2, 32)
+    want, _, _ = JT.forward(jp, cfg, {"tokens": jnp.asarray(raw["tokens"])})
+    got, _, _ = T.forward(tp, tcfg,
+                          {"tokens": torch.from_numpy(raw["tokens"])})
+    assert calls == [full.head_dim] * cfg.num_layers
+    close(got, want, 2e-4)
+
+
+MLA_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b")
+
+
+def _k3_head_dim(cfg):
+    """The head dim an ``attn`` block hands K3 at prefill (MLA: its q.k
+    dim), or None where no block of the arch reaches K3 (``rwkv6`` and
+    ``rglru`` blocks; ``local`` blocks run the plain windowed attention)."""
+    if "attn" not in cfg.layer_kinds():
+        return None
+    if cfg.mla is not None:
+        return cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+    return cfg.head_dim
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_k3_takes_every_full_width_head_dim_but_mla(arch):
+    """Which archs' full-width prefill K3 takes on the card: every one but
+    the MLA ones, whose q.k dim of 192 is ROADMAP queue 1, item 18."""
+    d = _k3_head_dim(tconfigs.get_config(arch))
+    assert (d is None or d in FA.HEAD_DIMS) == (arch not in MLA_ARCHS), d
 
 
 @pytest.mark.parametrize("arch,reason", [("deepseek-v2-236b", "item 7"),

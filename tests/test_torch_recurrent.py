@@ -226,6 +226,59 @@ def test_rwkv6_two_pass_matches_reference(b, s, h, n, chunk, dtype):
     close(got_s, plain_s, 1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_takes_bf16_decays_like_reference(dtype):
+    """Fault 6: w_log and u in bf16, as the reference's kernel takes them
+    (it widens every input in its body). The port's plain route against
+    the reference's Pallas kernel in interpret mode on the same bf16
+    values, with tests/test_kernels.py:75-76's tolerances (f32 1e-3, bf16
+    5e-2)."""
+    r, k, v, w_log, u = wkv_inputs(np.random.default_rng(26), 2, 64, 2, 32)
+    (jr, tr), (jk, tk), (jv, tv) = (pair(a, dtype) for a in (r, k, v))
+    (jw, tw), (ju, tu) = (pair(a, "bfloat16") for a in (w_log, u))
+    got = ops.rwkv6_scan(tr, tk, tv, tw, tu, chunk=16)
+    tol = 5e-2 if dtype == "bfloat16" else 1e-3
+    close(got, jax_ops.rwkv6_scan(jr, jk, jv, jw, ju, chunk=16), tol)
+
+
+@pytest.mark.parametrize("n", [16, 48])
+def test_rwkv6_padded_n_matches_reference(n):
+    """What the card's wrapper hands K4 at an N it has no instance of: r/k/v
+    of mixed dtypes, bf16 w_log, u and state, widened and padded to the
+    next instance (zero r, k, v, u and state, a log decay of 0), through
+    the kernels' arithmetic (``two_pass``), then cut back to N. Out and
+    final state against the reference's oracle on the same values (5e-2,
+    bf16 inputs); the padded rows and columns of the state stay 0."""
+    b, s, h = 2, 40, 2
+    r, k, v, w_log, u = wkv_inputs(np.random.default_rng(27), b, s, h, n)
+    s0 = np.random.default_rng(28).standard_normal(
+        (b, h, n, n)).astype(np.float32)
+    (jr, tr), (jv, tv) = pair(r, "bfloat16"), pair(v, "bfloat16")
+    (jw, tw), (ju, tu), (js, ts) = (pair(a, "bfloat16")
+                                    for a in (w_log, u, s0))
+    args = WKV.widen_and_pad(tr, t(k), tv, tw, tu, ts)
+    np_ = WKV.padded_n(n)
+    assert [tuple(a.shape)[-1] for a in args] == [np_] * 6
+    assert args[0].dtype == torch.float32       # r/k/v of mixed dtypes
+    assert WKV.widen_and_pad(*(t(a).half() for a in (r, k, v)), tw, tu)[
+        0].dtype == torch.float32               # or of another float type
+    out, final = WKV.two_pass(*args)
+    assert float(final[..., n:, :].abs().max()) == 0.0
+    assert float(final[..., :, n:].abs().max()) == 0.0
+    want, want_s = jax_ref.rwkv6(jr, jnp.asarray(k), jv, jw,
+                                 ju.astype(jnp.float32),
+                                 js.astype(jnp.float32))
+    close(out[..., :n], want, 5e-2)
+    close(final[..., :n, :n], want_s, 5e-2)
+
+
+def test_rwkv6_scan_names_the_ns_the_card_covers():
+    with pytest.raises(ValueError, match=r"N <= 64 \(instances \(32, 64\)"):
+        WKV.padded_n(65)
+    assert [WKV.padded_n(n) for n in (1, 16, 32, 33, 64)] == \
+        [32, 32, 32, 64, 64]
+
+
 @pytest.mark.parametrize("s", [37, 80])
 def test_rwkv6_two_pass_from_a_state_at_a_ragged_length(s):
     """A given initial state and a ragged last chunk (padded with zeros),

@@ -190,6 +190,52 @@ def test_recurrent_prefill_steps_go_through_k4_and_k5(recurrent_servers,
         assert calls == want, (job, calls)
 
 
+H100_JOBS = [("a-phi3-prefill", "phi3-mini-3.8b", "prefill", 4, 1, 32),
+             ("b-phi3-decode", "phi3-mini-3.8b", "decode", 8, 2, 32)]
+
+
+def test_h100_drain_issues_each_jobs_slices(tmp_path, monkeypatch):
+    """The server on the H100 model (a slice is 132 blocks, one a SM):
+    the phi3 prefill x decode pair is co-scheduled at least once, every
+    job runs exactly its ``num_slices`` steps, and the engine plan's
+    co-scheduled phases pair the same jobs as the executed rounds."""
+    from repro_torch.core.profiles import H100, h100_profile_from_costs
+    monkeypatch.setenv("REPRO_TORCH_IPC_CACHE", str(tmp_path))
+    srv = TS.SharedPodServer(gpu_spec=H100,
+                             profile_fn=h100_profile_from_costs,
+                             device="cpu")
+    for job in H100_JOBS:
+        srv.submit(TS.Job(*job))
+    ran = dict.fromkeys(srv.jobs, 0)
+    for name, step in list(srv._exec.items()):
+        srv._exec[name] = lambda _n=name, _s=step: ran.__setitem__(
+            _n, ran[_n] + 1) or _s()
+    assert all(p.num_blocks == j[3] * 132 for j, p in
+               zip(H100_JOBS, srv.profiles.values()))
+    res = srv.drain()
+    assert ran == {name: n for name, _, _, n, _, _ in H100_JOBS}
+    assert all(j.num_slices == 0 for j in srv.jobs.values())
+    pairs = {(k1, k2) for k1, k2, *_ in res["rounds"] if k2 is not None}
+    assert pairs == {("a-phi3-prefill", "b-phi3-decode")}
+    planned = {tuple(label[3:].split("@")[0].split("+"))
+               for _, label in res["plan"]["time_line"]
+               if label.startswith("co:")}
+    assert planned == pairs and res["plan"]["n_coschedules"] >= 1
+
+
+def test_demo_plans_on_the_h100_model(tmp_path, monkeypatch, capsys):
+    """``demo()`` on the CPU: the reference's tenants but the one that
+    waits for MoE and MLA, planned and printed as H100-model decisions."""
+    monkeypatch.setenv("REPRO_TORCH_IPC_CACHE", str(tmp_path))
+    TS.demo("cpu")
+    out = capsys.readouterr().out
+    for name in ("tenantA-phi3-prefill", "tenantC-rwkv-prefill",
+                 "tenantD-sc2-decode"):
+        assert f"submitted {name}" in out
+    assert "engine plan (H100 model)" in out and "v5e" not in out
+    assert "H100-model predicted CP" in out
+
+
 def test_scheduler_feeds_fused_kernel():
     """Port of tests/test_integration.py:88-108: Kernelet's balanced slice
     ratio drives the port's coschedule."""
