@@ -13,9 +13,10 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
-     (2a: K3 at D = 96, and at StableLM's D = 80 and 160 in bf16 and f32,
-     causal and full, each timed beside its bound and SDPA, with the
-     profiler naming their instances; 2b: K1 at slice sizes 4 and 132 and
+     (2a: K3 at D = 96, at StableLM's D = 80 and 160 and at MLA's q.k dim
+     192 (DeepSeek's prefill shape, 128 heads) in bf16 and f32, causal and
+     full, each timed beside its bound and SDPA, with the profiler naming
+     their instances, and the reduced MLA dim 48 on the small grids; 2b: K1 at slice sizes 4 and 132 and
      as one launch, each beside its bound at that slice size; 2c: K2's
      occupancy, fused, matmul-alone and stream-alone times at the C2050
      model's run ratio and at the one the H100 model picks for the same two
@@ -45,6 +46,12 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      prefill and a decode tenant) and stablelm-12b (D = 160; a prefill
      tenant) served on the H100 model, one arch's weights at a time, K3
      launched once a layer per prefill run;
+  3d. DeepSeek (MLA + MoE), counted the same way: deepseek-v2-236b at full
+     width cut to 4 layers (a prefill and a decode tenant) and
+     deepseek-v3-671b at full width cut to 4 layers (a prefill tenant),
+     served on the H100 model, one arch's weights at a time, with the v5e
+     model's decisions beside the H100 one's; K3 launched once a layer per
+     prefill run at D = 192;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan are the scheduler's model predictions, labelled
@@ -52,6 +59,7 @@ with the model (H100 or v5e); every time printed here is the card's own.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -89,8 +97,14 @@ K4_KERNELS = ("wkv6_states_kernel", "wkv6_out_kernel")
 K5_KERNEL = "rg_lru_cluster_kernel"
 K5_OLD_KERNEL = "rg_lru_kernel"        # the per-segment kernel it replaced
 SMS = 132                                 # H100 SXM streaming multiprocessors
-# StableLM's head dims (3B, 12B), K3's instances beside Phi-3's 96
-K3_NEW_DIMS = (80, 160)
+# K3's instances beside Phi-3's 96, each at its model's prefill shape:
+# StableLM-3B's and -12B's head dims, and MLA's q.k dim (DeepSeek-V2/V3,
+# 128 heads, v padded to 192)
+K3_NEW_SHAPES = {80: (1, 32, 2048, 80), 160: (1, 32, 2048, 160),
+                 192: (1, 128, 2048, 192)}
+# the depth DeepSeek's full-width configs are cut to (phase 3d): the
+# 236B/671B models do not fit one card
+DS_DEPTH = 4
 PASSES = 10       # alternating serial/drain passes a serving phase
 # the kernels' times before their redesign, at the same shapes, printed
 # beside this run's (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): K2
@@ -298,6 +312,24 @@ def trace_report(trace) -> dict:
         resident=resident)
 
 
+def kernel_events(torch, fn, tries: int = 3) -> list:
+    """The device kernels of one run of ``fn`` under ``torch.profiler``
+    (key averages, one a kernel name). A profile that recorded no kernel
+    at all is taken again, up to ``tries`` times: on the card one came back
+    empty once, after its kernel had run and been checked."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
+        log("[profile] the profiler recorded no kernel; profiling again")
+    return evs
+
+
 def max_err(torch, got, want, tol) -> float:
     err = float((got.float() - want.float()).abs().max())
     ok = torch.allclose(got.float(), want.float(), **tol)
@@ -335,6 +367,15 @@ def twin_server(srv, spec, profile_fn):
         twin.profiles[name] = job_profile(job, spec, profile_fn)
         twin._exec[name] = srv._exec[name]
     return twin
+
+
+def model_decisions(srv, spec, profile_fn):
+    """The rounds a server over ``srv``'s pending jobs would run when it
+    planned on another hardware model, found by draining a twin whose
+    steps do nothing. Call it before ``srv`` drains."""
+    twin = twin_server(srv, spec, profile_fn)
+    twin._exec = {name: (lambda: None) for name in twin.jobs}
+    return twin.drain(plan_first=False)["rounds"]
 
 
 def decisions(rounds) -> list:
@@ -408,14 +449,9 @@ def drain_report(torch, srv, twin, res, res_twin, slices, label: str,
     med, lo, hi = median_range(runs["serial"])
     log(f"[{label}] serial wall over the same passes: median {med:.4f} s, "
         f"range {lo:.4f}-{hi:.4f} s")
-    from torch.profiler import ProfilerActivity, profile
     seen = {}
     for name in srv.jobs:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            srv._exec[name]()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        evs = kernel_events(torch, srv._exec[name])
         seen[name] = [e.key for e in evs]
         total = sum(e.self_device_time_total for e in evs)
         assert total > 0, f"{name}: the profiler saw no device time"
@@ -458,7 +494,6 @@ def main() -> int:
     from repro_torch.models import recurrent as R
     from repro_torch.models import transformer as T
     from repro_torch.runtime.daemon import ServingDaemon
-    from torch.profiler import ProfilerActivity, profile
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -490,6 +525,12 @@ def main() -> int:
             log(f"[ptxas {name}] {entry}: {regs}; {spill}")
             if name == "flash_attention":
                 assert "0 bytes spill stores" in spill, (entry, spill)
+        if name == "flash_attention":
+            entries = " ".join(e for e, _, _ in ptxas_entries(text))
+            for d in (48, 192):
+                for sym in (f"flash_fwd_wgmma_kernelILi{d}E",
+                            f"flash_fwd_kernelIfLi{d}E"):
+                    assert sym in entries, (sym, entries)
 
     rows = {}
 
@@ -497,12 +538,23 @@ def main() -> int:
     for (b, h, s, d, causal) in [(1, 2, 256, 64, True), (2, 1, 128, 128, True),
                                  (1, 2, 256, 64, False), (1, 2, 100, 96, True),
                                  (1, 2, 100, 80, True),
-                                 (2, 1, 256, 160, False)]:
+                                 (2, 1, 256, 160, False),
+                                 (1, 2, 100, 48, True), (2, 1, 256, 48, False),
+                                 (1, 2, 100, 192, True),
+                                 (2, 1, 256, 192, False)]:
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             q, k, v = (randn((b, h, s, d), dt) for _ in range(3))
             err = max_err(torch, ops.flash_attention(q, k, v, causal=causal),
                           ref.flash_attention(q, k, v, causal=causal), tol)
             log(f"[K3 grid] {(b, h, s, d)} causal={causal} {dt} err {err:.3e}")
+    qs = [randn((1, 2, 256, 48), dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+    names = " ".join(e.key for e in kernel_events(
+        torch, lambda: [ops.flash_attention(q, q, q) for q in qs]))
+    for sym in ("flash_fwd_wgmma_kernel<48>", "flash_fwd_kernel<float, 48>"):
+        assert sym in names, (sym, names)
+    log("[K3 D=48] the profiler names flash_fwd_wgmma_kernel<48> and "
+        "flash_fwd_kernel<float, 48> (reduced MLA's q.k dim)")
     shape = (1, 32, 2048, 96)
     q, k, v = (randn(shape, torch.bfloat16) for _ in range(3))
     got = ops.flash_attention(q, k, v, causal=True)
@@ -531,10 +583,11 @@ def main() -> int:
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     del q, k, v
-    # StableLM's head dims at the prefill shape: both paths, both masks;
-    # the tensor-core path timed beside its bound and SDPA
-    for d in K3_NEW_DIMS:
-        shape = (1, 32, 2048, d)
+    # StableLM's head dims and MLA's q.k dim at their prefill shapes: both
+    # paths, both masks; the tensor-core path timed beside its bound and SDPA
+    for d, shape in K3_NEW_SHAPES.items():
+        bsz, heads, s, _ = shape
+        pairs = s * (s + 1) // 2
         errs = []
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             q, k, v = (randn(shape, dt) for _ in range(3))
@@ -556,12 +609,11 @@ def main() -> int:
             q, k, v, is_causal=True), 20)
         b_d, by_d = bound(4.0 * d * pairs * bsz * heads,
                           4 * q.numel() * q.element_size(), "bfloat16")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ops.flash_attention(q, k, v, causal=True)
-            ops.flash_attention(q[:, :2, :256].float(), k[:, :2, :256].float(),
-                                v[:, :2, :256].float())
-            torch.cuda.synchronize()
-        names = " ".join(e.key for e in prof.key_averages())
+        names = " ".join(e.key for e in kernel_events(torch, lambda: (
+            ops.flash_attention(q, k, v, causal=True),
+            ops.flash_attention(q[:, :2, :256].float(),
+                                k[:, :2, :256].float(),
+                                v[:, :2, :256].float()))))
         for sym in (f"flash_fwd_wgmma_kernel<{d}>",
                     f"flash_fwd_kernel<float, {d}>"):
             assert sym in names, (sym, names)
@@ -852,11 +904,9 @@ def main() -> int:
     state = zeros.clone()
     ms = time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w_log, u,
                                                state=state), 20)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ops.rwkv6_scan(r, k, v, w_log, u, state=state)
-        torch.cuda.synchronize()
-    pass_ms = {name: sum(e.self_device_time_total for e in prof.key_averages()
+    evs = kernel_events(torch, lambda: [
+        ops.rwkv6_scan(r, k, v, w_log, u, state=state) for _ in range(5)])
+    pass_ms = {name: sum(e.self_device_time_total for e in evs
                          if name in e.key) / 5e3 for name in K4_KERNELS}
     assert all(t > 0 for t in pass_ms.values()), pass_ms
     plain = time_ms(torch, lambda: R.rwkv6_chunked(r, k, v, w_log, u, zeros),
@@ -949,11 +999,9 @@ def main() -> int:
         # a call's host work (checks, two tensor maps) is of the kernel's
         # order, so back-to-back events would time the host: the profiler's
         # device time of the kernel instead
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                ops.rg_lru(x, a_log, h0=zeros)
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if K5_KERNEL in e.key]
+        evs = [e for e in kernel_events(torch, lambda: [
+            ops.rg_lru(x, a_log, h0=zeros) for _ in range(reps)])
+            if K5_KERNEL in e.key]
         assert sum(e.count for e in evs) == reps, [e.key for e in evs]
         return sum(e.self_device_time_total for e in evs) / (reps * 1e3)
 
@@ -1177,11 +1225,7 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         step = arch_jobs[0].name
         alone = time_ms(torch, srv._exec[step], 3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            srv._exec[step]()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        evs = kernel_events(torch, srv._exec[step])
         total = sum(e.self_device_time_total for e in evs)
         k3 = [e for e in evs if f"flash_fwd_wgmma_kernel<{cfg.head_dim}>"
               in e.key]
@@ -1196,8 +1240,99 @@ def main() -> int:
         del srv, wts, logits, res
         torch.cuda.empty_cache()
     log(f"[main path] stablelm launches {slm_launches}")
+
+    # ---- phase 3d: DeepSeek (MLA + MoE), counted ---------------------------
+    ds_launches = dict.fromkeys(_build.NAMES, 0)
+    ds = {"deepseek-v2-236b": [
+              Job("tenantB-dsv2-prefill", "deepseek-v2-236b", "prefill", 2,
+                  1, 2048),
+              Job("tenantB-dsv2-decode", "deepseek-v2-236b", "decode", 4, 8,
+                  4096)],
+          "deepseek-v3-671b": [
+              Job("tenantK-dsv3-prefill", "deepseek-v3-671b", "prefill", 2,
+                  1, 2048)]}
+    for arch, arch_jobs in ds.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=DS_DEPTH)
+        kinds = [T._layer_sig(cfg, i) for i in range(cfg.num_layers)]
+        n_moe = sum(is_moe for _, is_moe in kinds)
+        t0 = time.time()
+        wts = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        n_params = T.count_params(wts)
+        leaves = []
+        T._tree_map(leaves.append, wts)
+        gib = sum(a.numel() * a.element_size() for a in leaves) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        srv = h100_server()
+        for job in arch_jobs:
+            srv.submit(job, params=wts, cfg=cfg)
+        v5e_rounds = model_decisions(srv, TPU_V5E, tpu_profile_from_costs)
+        res = srv.drain()
+        for name in _build.NAMES:
+            ds_launches[name] += ops.LAUNCHES[name]
+        assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
+        runs = prefill_runs(res["rounds"], arch_jobs[0].name)
+        flash = ops.LAUNCHES["flash_attention"]
+        assert flash == cfg.num_layers * runs, (arch, flash, runs)
+        logits = {name: srv._exec[name]() for name in srv.jobs}
+        torch.cuda.synchronize()
+        for job in arch_jobs:
+            want = ((job.batch_per_slice, job.seq, cfg.vocab_size)
+                    if job.phase == "prefill" else
+                    (job.batch_per_slice, cfg.vocab_size))
+            lg = logits[job.name]
+            assert tuple(lg.shape) == want, (job.name, lg.shape)
+            assert bool(torch.isfinite(lg.float()).all()), \
+                f"{job.name}: non-finite"
+        m, moe = cfg.mla, cfg.moe
+        log(f"[serve-ds] {arch} full width (d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads, MLA kv_lora {m.kv_lora_rank} / q_lora "
+            f"{m.q_lora_rank} / qk {m.qk_nope_dim}+{m.qk_rope_dim} / v "
+            f"{m.v_head_dim}, {moe.num_experts} experts top-{moe.top_k} of "
+            f"d_ff {moe.d_ff_expert} ({moe.router_act} router), "
+            f"{moe.num_shared_experts} shared, vocab {cfg.vocab_size}), depth "
+            f"cut num_layers {full.num_layers} -> {cfg.num_layers} "
+            f"({cfg.num_layers - n_moe} dense + {n_moe} MoE), bf16, seeded "
+            f"random weights ({n_params / 1e9:.3f} B params, {gib:.2f} GiB, "
+            f"built in {t_init:.2f} s), on the H100 model: drain wall_s "
+            f"{res['wall_s']:.4f}; flash_attention launches {flash} = "
+            f"{cfg.num_layers} x {runs} prefill runs (warm-up included); "
+            f"logits " + ", ".join(f"{n} {tuple(lg.shape)}"
+                                   for n, lg in logits.items())
+            + f" finite; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for k1, k2, n1, n2, cp in res["rounds"]:
+            log(f"[serve-ds] H100 model: round {k1} x {k2}: slices {n1}:{n2}, "
+                f"predicted CP {cp:+.4f}")
+        log(f"[serve-ds] decisions side by side (pair, slices), H100 | v5e: "
+            f"{decisions(res['rounds'])} | {decisions(v5e_rounds)}")
+        for job in arch_jobs:
+            alone = time_ms(torch, srv._exec[job.name], 3)
+            evs = kernel_events(torch, srv._exec[job.name])
+            total = sum(e.self_device_time_total for e in evs)
+            assert total > 0, f"{job.name}: the profiler saw no device time"
+            k3 = [e for e in evs if "flash_fwd_wgmma_kernel<192>" in e.key]
+            n_k3 = sum(e.count for e in k3)
+            assert n_k3 == (cfg.num_layers if job.phase == "prefill" else 0), \
+                (job.name, n_k3, [e.key for e in evs])
+            k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
+            top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+            log(f"[profile {job.name}] step alone {alone:.3f} ms; device "
+                f"time {total / 1e3:.3f} ms in {sum(e.count for e in evs)} "
+                f"kernels (idle {1 - total / 1e3 / alone:.1%}); K3 "
+                f"flash_fwd_wgmma_kernel<192> {k3_ms:.3f} ms x{n_k3} "
+                f"({k3_ms / (total / 1e3):.1%}); top: " + "; ".join(
+                    f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+        del srv, wts, logits, res
+        torch.cuda.empty_cache()
+    log(f"[main path] deepseek launches {ds_launches}")
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
-                for name in _build.NAMES}
+                + ds_launches[name] for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
 
@@ -1234,7 +1369,7 @@ def main() -> int:
                                                "h100_fused_over_serial")
                            if k in row},
                         **{k: v for k, v in row.items()
-                           if k.startswith(("d80_", "d160_"))}})
+                           if k.startswith(("d80_", "d160_", "d192_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

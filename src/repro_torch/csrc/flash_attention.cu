@@ -7,8 +7,10 @@
 // accumulator in f32 registers. Same numerics as the reference: scale
 // 1/sqrt(D) after the dot, mask -1e30 on global positions, out = acc /
 // max(l, 1e-30). One launch per call; any S, the ragged edge masked; D in
-// {32, 64, 80, 96, 128, 160} as a template parameter (96 is Phi-3's head_dim,
-// 80 StableLM-3B's, 160 StableLM-12B's).
+// {32, 48, 64, 80, 96, 128, 160, 192} as a template parameter (96 is Phi-3's
+// head_dim, 80 StableLM-3B's, 160 StableLM-12B's, 192 the q.k dim of
+// DeepSeek's MLA, 128 + 64, and 48 that of its reduced test config, 32 + 16;
+// MLA pads v to the q.k dim, as the reference's _pad_v does).
 //
 // Two paths, chosen by dtype alone:
 // - bf16, flash_fwd_wgmma_kernel: one CTA per (b*h, 128-row q tile), causal
@@ -21,8 +23,9 @@
 //   reduced across the row's four lanes), then O += P V by wgmma.m64nDk16
 //   with P converted to bf16 in registers as the A operand and V read
 //   MN-major (transpose bit). Every tile is stored in TMA's 64-byte swizzle
-//   in 32-column boxes: D / 32 of them where 32 divides D (160 = 5 x 32).
-//   D = 80 is not a whole number of boxes. Of the two ways to take it -- a
+//   in 32-column boxes: D / 32 of them where 32 divides D (160 = 5 x 32,
+//   192 = 6 x 32). D = 80 and D = 48 are not whole numbers of boxes. Of
+//   the two ways to take D = 80 -- a
 //   16-column tail box in the 32-byte swizzle with descriptors of its own,
 //   or the 96-column tile of D = 96 with columns 80-95 left to TMA's zero
 //   fill -- the kernel takes the second, because the first would need a
@@ -34,9 +37,15 @@
 //   nothing), and P V runs m64n80k16, whose B operand is the first 80
 //   columns of the 96-wide V tile (on the card it gave the errors that
 //   m64n96k16 over the whole tile gives). It costs the 16 zero columns'
-//   shared memory and TMA traffic, none of device memory's bytes. D = 160's Q tile (40 KB) and two stages
-//   of K and V (20 KB each a stage) take 120 KB; its O accumulator is 80 f32
-//   a thread beside the 32 scores.
+//   shared memory and TMA traffic, none of device memory's bytes. D = 48
+//   takes the same way into the 64-column tile: its tensor maps keep an inner
+//   dimension of 48 (96-byte rows), Q K^T runs the 3 real steps and P V
+//   m64n48k16. D = 160's Q tile (40 KB) and two stages of K and V (20 KB
+//   each a stage) take 120 KB; its O accumulator is 80 f32 a thread beside
+//   the 32 scores. D = 192 takes 48 KB of Q and 96 KB of K and V, 144 KB
+//   with the barriers, and 96 accumulators a thread: registers, not shared
+//   memory, are its limit (288 threads and one CTA an SM leave a thread 224),
+//   and chip_smoke.py asserts that no instance spills.
 // - f32, flash_fwd_kernel: f32 FMA on the CUDA cores, 64-row q tiles, four
 //   threads a row (no model runs attention in f32).
 //
@@ -409,7 +418,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
                int causal, cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes;  // 94 KB at D = 96: above the 48 KB default
+  const size_t smem = Smem<D>::bytes;  // 94 KB at D = 96, 164 KB at 192: above the 48 KB default
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -425,7 +434,8 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
                 int causal, cudaStream_t stream) {
   // (D, S, B*H) in boxes of (32, rows, 1), 64-byte swizzle; at D = 80 the
-  // third box of a row runs past D and TMA fills columns 80-95 with zeros
+  // third box of a row runs past D and TMA fills columns 80-95 with zeros,
+  // at D = 48 the second box columns 48-63
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
@@ -467,11 +477,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch<32>(q, k, v, o, bh, s, scale, causal, dtype, st);
+    case 48: return launch<48>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 64: return launch<64>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 80: return launch<80>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 96: return launch<96>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 128: return launch<128>(q, k, v, o, bh, s, scale, causal, dtype, st);
     case 160: return launch<160>(q, k, v, o, bh, s, scale, causal, dtype, st);
+    case 192: return launch<192>(q, k, v, o, bh, s, scale, causal, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

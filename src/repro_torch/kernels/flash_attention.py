@@ -8,7 +8,9 @@ final division. The dtype alone picks the path: bf16 runs ``wgmma`` on the
 tensor cores (128-row q tiles, 64-key K/V tiles in a TMA ring), f32 runs FMA
 on the CUDA cores (64-row q tiles). D is one of ``HEAD_DIMS``; D = 80
 (StableLM-3B) runs in the 96-column tile, TMA filling columns 80-95 with
-zeros. The plain version is
+zeros, and D = 48 (reduced MLA's q.k dim) likewise in the 64-column tile.
+D = 192 is full-width MLA's q.k dim (DeepSeek-V2/V3: 128 + 64, with v padded
+to it). The plain version is
 ``repro_torch.kernels.ref.flash_attention``;
 ``repro_torch.kernels.ops.flash_attention`` picks between the two by device.
 
@@ -26,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 # template instances in csrc/flash_attention.cu
-HEAD_DIMS = (32, 64, 80, 96, 128, 160)
+HEAD_DIMS = (32, 48, 64, 80, 96, 128, 160, 192)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": (

@@ -95,13 +95,17 @@ class SharedPodServer:
         self._streams: Dict[str, torch.cuda.Stream] = {}
 
     # ---- job admission: build, warm up, profile, register ---- #
-    def submit(self, job: Job, params=None):
+    def submit(self, job: Job, params=None, cfg=None):
         """Build the job's step and run it once (which also builds and
         loads the kernels on first use). ``params`` defaults to fresh
         weights from the server's seed, the same for every job as in the
-        reference."""
-        full_cfg = get_config(job.arch)
-        cfg = reduced(full_cfg) if self.use_reduced else full_cfg
+        reference. ``cfg`` is the config the step runs, by default the
+        arch's reduced or full one (``use_reduced``): a depth-cut config
+        lets a model too large for the card run at full width. The
+        scheduler's profile is the full arch's whatever ``cfg`` is."""
+        if cfg is None:
+            full_cfg = get_config(job.arch)
+            cfg = reduced(full_cfg) if self.use_reduced else full_cfg
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             params = T.init_params(cfg, gen, device=self.device)
@@ -430,15 +434,20 @@ def card_spec(device) -> GPUSpec:
     return dataclasses.replace(H100, n_sm=n_sm)
 
 
+# the reference's demo tenants (repro/launch/serve.py:399-404), in its order
+DEMO_JOBS = (("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 24),
+             ("tenantB-dsv2-decode", "deepseek-v2-236b", "decode", 24),
+             ("tenantC-rwkv-prefill", "rwkv6-1.6b", "prefill", 16),
+             ("tenantD-sc2-decode", "starcoder2-15b", "decode", 16))
+
+
 def demo(device=None):
-    """The reference's demo tenants on the H100 model (``tenantB-dsv2-
-    decode`` waits for MoE and MLA, ROADMAP items 7 and 9)."""
+    """The reference's four demo tenants, reduced, on the H100 model."""
     dev = resolve_device(device)
     server = SharedPodServer(gpu_spec=card_spec(dev),
                              profile_fn=h100_profile_from_costs, device=dev)
-    server.submit(Job("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 24))
-    server.submit(Job("tenantC-rwkv-prefill", "rwkv6-1.6b", "prefill", 16))
-    server.submit(Job("tenantD-sc2-decode", "starcoder2-15b", "decode", 16))
+    for job in DEMO_JOBS:
+        server.submit(Job(*job))
     for ev in server.log:
         print("submitted", ev[1],
               f"PUR={ev[2]:.2f} MUR={ev[3]:.2f} R_m={ev[4]:.2f}")

@@ -28,11 +28,14 @@ def _trunc_normal_(t, generator):
 
 
 def dense_init(generator, shape, scale: float = 1.0, *, dtype=torch.bfloat16,
-               device="cpu", lead: tuple = ()):
+               device="cpu", lead: tuple = (), fan_in: int = 0):
     """Truncated-normal fan-in init of a ``lead + shape`` tensor: one
     ``shape`` weight per leading index (a stack of layers), each drawn in
-    f32 and cast, so no f32 copy of the whole stack is ever held."""
-    fan_in = shape[0] if len(shape) >= 2 else 1
+    f32 and cast, so no f32 copy of the whole stack is ever held. ``fan_in``
+    0 means ``shape[0]``; a caller that moves a weight's first dim into
+    ``lead`` passes that dim to keep the reference's scale."""
+    if not fan_in:
+        fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale / np.sqrt(fan_in)
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
     tmp = torch.empty(tuple(shape), dtype=torch.float32, device=device)

@@ -1,15 +1,18 @@
 """Model assembly: the stage-planned transformer.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
-``attn``, sliding-window ``local``, ``rwkv6`` and ``rglru`` block kinds.
-Parameters keep the reference's stacked layout —
+(GQA or MLA) ``attn``, sliding-window ``local``, ``rwkv6`` and ``rglru``
+block kinds, each with a dense MLP or, past ``moe.first_dense_layers``, a
+MoE FFN. Parameters keep the reference's stacked layout —
 ``params["stage<i>"]["sub<j>"]`` holds each weight with a leading
-``repeats`` axis — so converting the reference's weights is a tree-map
+``repeats`` axis, and DeepSeek-V3's ``mtp`` head sits where the reference
+puts it — so converting the reference's weights is a tree-map
 (``repro_torch.convert``). Where the reference runs each stage under
 ``lax.scan`` with remat, this runs a Python loop over the stack under
 ``torch.inference_mode()``, and writes every cache in place. Sharding
-(``constrain``) is ROADMAP queue 1, item 14; MoE, MLA, cross-attention and
-learned positions raise ``NotImplementedError`` naming their ROADMAP item.
+(``constrain``) and the expert-parallel MoE are ROADMAP queue 1, item 14;
+cross-attention, learned positions and the MTP loss raise or wait for
+item 10.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -63,13 +67,9 @@ def stage_plan(cfg) -> list:
 
 
 def _check_supported(cfg, sig):
-    kind, is_moe = sig
+    kind, _ = sig
     if kind not in ("attn", "local", "rwkv6", "rglru"):
         raise ValueError(kind)
-    if is_moe:
-        raise NotImplementedError("MoE: ROADMAP queue 1, item 9")
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA: ROADMAP queue 1, item 7")
     if cfg.is_encoder_decoder:
         raise NotImplementedError("cross-attention: ROADMAP queue 1, item 10")
 
@@ -85,7 +85,7 @@ def _torch_dtype(name_or_dtype):
 # ===================================================================== #
 def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
     _check_supported(cfg, sig)
-    kind, _ = sig
+    kind, is_moe = sig
     kw = dict(device=device, lead=lead)
     p = {"norm1": L.init_norm(cfg.norm, cfg.d_model, **kw),
          "norm2": L.init_norm(cfg.norm, cfg.d_model, **kw)}
@@ -99,6 +99,8 @@ def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
     if kind == "rwkv6":
         p["cmix"] = R.init_rwkv6_cmix(generator, cfg, n_layers, dtype=dtype,
                                       **kw)
+    elif is_moe:
+        p["moe"] = M.init_moe(generator, cfg, n_layers, dtype=dtype, **kw)
     else:
         p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
                               n_layers, dtype=dtype, **kw)
@@ -199,13 +201,15 @@ def _store(cache, key, value):
 
 def apply_block(x, bp, cfg, sig, positions, *, cache=None, t=None):
     """One block. ``cache`` (the block's views into the stacked caches) is
-    updated in place. Returns (x, cache)."""
+    updated in place. Returns (x, cache, aux), ``aux`` the MoE FFN's
+    load-balance loss (0 for a dense FFN)."""
     _check_supported(cfg, sig)
-    kind, _ = sig
+    kind, is_moe = sig
+    aux = torch.zeros((), device=x.device)
     h = L.norm(x, bp["norm1"], cfg.norm)
     if kind == "attn":
-        a, cache = A.gqa_forward(h, bp["attn"], cfg, positions, cache=cache,
-                                 t=t)
+        attend = A.mla_forward if cfg.mla is not None else A.gqa_forward
+        a, cache = attend(h, bp["attn"], cfg, positions, cache=cache, t=t)
     elif kind == "local":
         a = _local_attention_block(h, bp["attn"], cfg, positions, cache, t)
     elif kind == "rwkv6":
@@ -231,9 +235,11 @@ def apply_block(x, bp, cfg, sig, positions, *, cache=None, t=None):
             x_last=cache["x_last_c"] if cache is not None else None)
         if cache is not None:
             _store(cache, "x_last_c", x_last_c)
+    elif is_moe:
+        f, aux = M.moe_ffn(h2, bp["moe"], cfg)
     else:
         f = L.mlp(h2, bp["mlp"], cfg.act)
-    return x + f, cache
+    return x + f, cache, aux
 
 
 # ===================================================================== #
@@ -265,8 +271,15 @@ def init_params(cfg, generator, device="cuda", dtype=None):
     params["final_norm"] = L.init_norm(cfg.norm, d, device=device)
     params["lm_head"] = L.dense_init(generator, (d, v), dtype=dtype,
                                      device=device)
-    if cfg.mtp:
-        raise NotImplementedError("MTP head: ROADMAP queue 1, item 10")
+    if cfg.mtp:     # DeepSeek-V3's head; its loss (_mtp_loss) is item 10
+        params["mtp"] = {
+            "norm_h": L.init_norm(cfg.norm, d, device=device),
+            "norm_e": L.init_norm(cfg.norm, d, device=device),
+            "proj": L.dense_init(generator, (2 * d, d), dtype=dtype,
+                                 device=device),
+            "block": {"sub0": _init_block(generator, cfg, ("attn", False),
+                                          cfg.num_layers, dtype=dtype,
+                                          device=device, lead=(1,))}}
     return params
 
 
@@ -280,6 +293,9 @@ def count_params(params) -> int:
 # forward
 # ===================================================================== #
 def _run_stages(params, cfg, x, positions, *, caches=None, t=None):
+    """Every stage's blocks in order. Returns (x, the blocks' summed aux
+    loss)."""
+    aux = torch.zeros((), device=x.device)
     for si, st in enumerate(stage_plan(cfg)):
         sp = params[f"stage{si}"]
         cs = caches.get(f"stage{si}") if caches is not None else None
@@ -289,16 +305,18 @@ def _run_stages(params, cfg, x, positions, *, caches=None, t=None):
                 bp = _tree_map(lambda a: a[r], sp[sub])
                 cc = _tree_map(lambda a: a[r], cs[sub]) if cs is not None \
                     else None
-                x, _ = apply_block(x, bp, cfg, sig, positions, cache=cc, t=t)
-    return x
+                x, _, a = apply_block(x, bp, cfg, sig, positions, cache=cc,
+                                      t=t)
+                aux = aux + a
+    return x, aux
 
 
 @torch.inference_mode()
 def forward(params, cfg, batch, *, caches=None, t=None):
     """batch: tokens (B,S) [+ positions]. Returns (logits, caches, aux).
 
-    ``caches`` are updated in place and returned; ``aux`` is the reference's
-    MoE loss, zero here (MoE is not ported)."""
+    ``caches`` are updated in place and returned; ``aux`` is the MoE
+    blocks' summed load-balance loss (0 without MoE), as the reference's."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if "positions" in batch:
@@ -311,10 +329,10 @@ def forward(params, cfg, batch, *, caches=None, t=None):
             raise NotImplementedError(f"{key} frontend: ROADMAP queue 1, "
                                       "item 10")
     x = params["embed"][tokens]
-    x = _run_stages(params, cfg, x, positions, caches=caches, t=t)
+    x, aux = _run_stages(params, cfg, x, positions, caches=caches, t=t)
     h_final = L.norm(x, params["final_norm"], cfg.norm)
     logits = h_final @ params["lm_head"]
-    return logits, caches, torch.zeros((), device=logits.device)
+    return logits, caches, aux
 
 
 # ===================================================================== #

@@ -100,18 +100,41 @@ def test_flash_attention_bf16_matches_plain(cuda, d, causal, s):
 
 
 def test_stablelm_head_dims_run_their_own_instances(cuda):
-    """The profiler names the D = 80 and D = 160 instances of both paths."""
+    """The profiler names the D = 80 and D = 160 instances of both paths,
+    and MLA's D = 48 and 192."""
     from torch.profiler import ProfilerActivity, profile
+    dims = (80, 160, 48, 192)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for d in (80, 160):
+        for d in dims:
             q = torch.randn(1, 2, 256, d, device=cuda)
             ops.flash_attention(q, q, q)
             ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages())
-    for d in (80, 160):
+    for d in dims:
         assert f"flash_fwd_wgmma_kernel<{d}>" in names, names
         assert f"flash_fwd_kernel<float, {d}>" in names, names
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_reduced_deepseek_forward_matches_the_cpu(cuda, arch):
+    """Reduced DeepSeek (MLA at q.k dim 48, MoE with capacity drops) in f32
+    on the card against the same weights' forward on the CPU (every op's
+    plain version there): K3 once a layer, logits and aux within 1e-3
+    (f32 on both; sums in another order)."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    want, _, want_aux = T.forward(params, cfg, {"tokens": tokens})
+    on_card = T._tree_map(lambda a: a.to(cuda), params)
+    ops.reset_launches()
+    got, _, aux = T.forward(on_card, cfg, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    assert abs(float(aux) - float(want_aux)) < 1e-5
 
 
 def test_stablelm_3b_prefill_at_full_width(cuda):

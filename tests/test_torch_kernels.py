@@ -84,11 +84,12 @@ def test_flash_attention_matches_reference(b, h, s, d, causal, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("d", [80, 160, 48, 192])
 def test_flash_attention_stablelm_head_dims_match_reference(d, causal,
                                                             dtype):
-    """StableLM's head dims (3B: 80, 12B: 160), which K3 now takes on the
-    card: the plain version against the reference's Pallas kernel in
+    """StableLM's head dims (3B: 80, 12B: 160) and MLA's q.k dims
+    (DeepSeek: 128 + 64 = 192; reduced: 32 + 16 = 48), which K3 takes on
+    the card: the plain version against the reference's Pallas kernel in
     interpret mode, as tests/test_kernels.py:52-58 runs it, with its
     tolerances (f32 2e-4, bf16 2e-2)."""
     rng = np.random.default_rng(10)

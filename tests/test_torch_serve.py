@@ -224,16 +224,77 @@ def test_h100_drain_issues_each_jobs_slices(tmp_path, monkeypatch):
 
 
 def test_demo_plans_on_the_h100_model(tmp_path, monkeypatch, capsys):
-    """``demo()`` on the CPU: the reference's tenants but the one that
-    waits for MoE and MLA, planned and printed as H100-model decisions."""
+    """``demo()`` on the CPU: the reference's four tenants, DeepSeek-V2's
+    MLA + MoE decode included, planned and printed as H100-model
+    decisions."""
     monkeypatch.setenv("REPRO_TORCH_IPC_CACHE", str(tmp_path))
     TS.demo("cpu")
     out = capsys.readouterr().out
-    for name in ("tenantA-phi3-prefill", "tenantC-rwkv-prefill",
-                 "tenantD-sc2-decode"):
+    for name in ("tenantA-phi3-prefill", "tenantB-dsv2-decode",
+                 "tenantC-rwkv-prefill", "tenantD-sc2-decode"):
         assert f"submitted {name}" in out
     assert "engine plan (H100 model)" in out and "v5e" not in out
     assert "H100-model predicted CP" in out
+
+
+# the reference's demo tenants, repro/launch/serve.py:399-404
+REF_DEMO_JOBS = [("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 24),
+                 ("tenantB-dsv2-decode", "deepseek-v2-236b", "decode", 24),
+                 ("tenantC-rwkv-prefill", "rwkv6-1.6b", "prefill", 16),
+                 ("tenantD-sc2-decode", "starcoder2-15b", "decode", 16)]
+
+
+def test_demo_tenants_rounds_equal_reference(tmp_path, monkeypatch):
+    """The four demo tenants, reduced, on the v5e model: the port's drain
+    makes the reference server's ``rounds`` and issues exactly n1 and n2
+    slices a round (queue 3, fault 1), every job exactly its
+    ``num_slices`` steps."""
+    assert list(TS.DEMO_JOBS) == REF_DEMO_JOBS
+    monkeypatch.setenv("REPRO_IPC_CACHE", str(tmp_path / "ref"))
+    monkeypatch.setenv("REPRO_TORCH_IPC_CACHE", str(tmp_path / "port"))
+    ref_srv = JS.SharedPodServer()
+    port = TS.SharedPodServer(device="cpu")
+    for job in REF_DEMO_JOBS:
+        ref_srv.submit(JS.Job(*job))
+        port.submit(TS.Job(*job))
+    ran = dict.fromkeys(port.jobs, 0)
+    for name, step in list(port._exec.items()):
+        port._exec[name] = lambda _n=name, _s=step: ran.__setitem__(
+            _n, ran[_n] + 1) or _s()
+    want, got = ref_srv.drain(), port.drain()
+    assert got["rounds"] == want["rounds"]
+    assert any(k2 is not None for _, k2, *_ in got["rounds"])
+    assert ran == {name: n for name, _, _, n in REF_DEMO_JOBS}
+    assert got["predicted_gain"] == want["predicted_gain"]
+    assert [ev[1:] for ev in port.log] == [ev[1:] for ev in ref_srv.log]
+
+
+def test_submit_runs_the_given_config(tmp_path, monkeypatch):
+    """``submit(cfg=)``: the step runs that config (here reduced
+    deepseek-v2 cut to its one dense layer: one K3 call a prefill step, at
+    its q.k dim 48), while the scheduler's profile stays the full arch's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config as tget
+    from repro_torch.configs import reduced as treduced
+    monkeypatch.setenv("REPRO_TORCH_IPC_CACHE", str(tmp_path))
+    job = TS.Job("dsv2-prefill", "deepseek-v2-236b", "prefill", 2, 1, 16)
+    cut = dataclasses.replace(treduced(tget(job.arch)), num_layers=1)
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda q, *a, **kw:
+                        calls.append(q.shape[-1]) or real(q, *a, **kw))
+    srv = TS.SharedPodServer(device="cpu")
+    srv.submit(job, cfg=cut)
+    assert calls == [48]                        # the warm-up ran the cut
+    logits = srv._exec[job.name]()
+    assert calls == [48, 48] and tuple(logits.shape) == (1, 16, 512)
+    assert srv.profiles[job.name] == TS.job_profile(job, srv.spec)
+    plain = TS.SharedPodServer(device="cpu")
+    plain.submit(dataclasses.replace(job, name="full"))
+    assert len(calls) == 2 + 2                  # the reduced config's 2 layers
+    assert dataclasses.replace(plain.profiles["full"], name=job.name) == \
+        srv.profiles[job.name]
 
 
 def test_scheduler_feeds_fused_kernel():
