@@ -16,13 +16,17 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      (2a: K3 at D = 96, at StableLM's D = 80 and 160 and at MLA's q.k dim
      192 (DeepSeek's prefill shape, 128 heads) in bf16 and f32, causal and
      full, each timed beside its bound and SDPA, with the profiler naming
-     their instances, and the reduced MLA dim 48 on the small grids; 2b: K1 at slice sizes 4 and 132 and
-     as one launch, each beside its bound at that slice size; 2c: K2's
-     occupancy, fused, matmul-alone and stream-alone times at the C2050
-     model's run ratio and at the one the H100 model picks for the same two
-     kernels, and from one traced launch the share of stream time spent
-     beside a matmul CTA on the same SM; 2d: K4 rwkv6_scan, from zero and
-     from a given state overwritten in place, at a ragged S, at an extreme
+     their instances, and the reduced MLA dim 48 on the small grids; then
+     bf16 at phase 3e's prefill shapes, D = 128 causal (Qwen2-VL), D = 64
+     full at S = 1500 (Whisper's encoder) and causal at 448 (its decoder
+     prompt), and D = 48 causal at 128 heads, each against the plain
+     version and timed beside its bound and SDPA; 2b: K1 at slice sizes 4
+     and 132 and as one launch, each beside its bound at that slice size;
+     2c: K2's occupancy, fused, matmul-alone and stream-alone times at the
+     C2050 model's run ratio and at the one the H100 model picks for the
+     same two kernels, and from one traced launch the share of stream time
+     spent beside a matmul CTA on the same SM; 2d: K4 rwkv6_scan, from zero
+     and from a given state overwritten in place, at a ragged S, at an extreme
      decay, with bf16 w_log and u and at a padded N, with each pass's
      device time; 2e: K5 rg_lru, f32 and bf16, from zero and from h0, on
      ragged shapes and over several windows, two calls chained through h0
@@ -52,6 +56,16 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      served on the H100 model, one arch's weights at a time, with the v5e
      model's decisions beside the H100 one's; K3 launched once a layer per
      prefill run at D = 192;
+  3e. Qwen2-VL and Whisper, counted the same way: full-width, uncut
+     qwen2-vl-7b (M-RoPE, 256 patch embeddings replacing the prompt's
+     prefix; a prefill and a decode tenant) and whisper-small (encoder over
+     1500 audio frames, learned positions, cross-attention; a prefill and a
+     decode tenant) served by one server on the H100 model, the v5e
+     model's decisions beside its; K3 launched 28 times a Qwen2-VL prefill
+     run (<128>) and 24 times a Whisper prefill run (<64>, 12 full in the
+     encoder and 12 causal in the decoder), never at decode; each step
+     profiled alone with its peak memory; ``train_loss`` once on each
+     arch's prefill batch, finite;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan are the scheduler's model predictions, labelled
@@ -102,6 +116,14 @@ SMS = 132                                 # H100 SXM streaming multiprocessors
 # 128 heads, v padded to 192)
 K3_NEW_SHAPES = {80: (1, 32, 2048, 80), 160: (1, 32, 2048, 160),
                  192: (1, 128, 2048, 192)}
+# K3 at the shapes of phase 3e's prefill steps and at D = 48 (the reduced
+# MLA q.k dim) at 128 heads: (row key prefix, (B, H, S, D), causal).
+# Qwen2-VL's prefill; Whisper's encoder (full, a ragged S = 1500: 11 x 128 +
+# 92 query rows, 28 keys in the last 64-key tile) and decoder prompt (448)
+K3_MODEL_SHAPES = (("d128_", (1, 28, 2048, 128), True),
+                   ("d64_full_", (8, 12, 1500, 64), False),
+                   ("d64_causal_", (8, 12, 448, 64), True),
+                   ("d48_", (1, 128, 2048, 48), True))
 # the depth DeepSeek's full-width configs are cut to (phase 3d): the
 # 236B/671B models do not fit one card
 DS_DEPTH = 4
@@ -337,6 +359,15 @@ def max_err(torch, got, want, tol) -> float:
     return err
 
 
+def k3_work(shape, causal: bool, elt: int = 2):
+    """K3's (FLOPs, bytes) at (B, H, S, D): two products of 2D FLOPs per
+    (query, key) pair it must score (S(S+1)/2 pairs causal, S^2 full), and
+    q, k, v read and out written once."""
+    b, h, s, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4.0 * d * pairs * b * h, 4 * b * h * s * d * elt
+
+
 def rel_errs(got, want):
     """(||got - want|| / ||want|| over the whole tensor, the same ratio at
     its worst last-axis row)."""
@@ -479,6 +510,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import VLM_PATCHES, make_batch
     from repro_torch.core.calibrate import calibrated_benchmarks
     from repro_torch.core.markov import MarkovModel, balanced_slice_sizes
     from repro_torch.core.engine import WorkloadEngine
@@ -491,6 +523,7 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.kernels import sliced_matmul as SM
     from repro_torch.launch.serve import Job, SharedPodServer, card_spec
+    from repro_torch.models import layers as L
     from repro_torch.models import recurrent as R
     from repro_torch.models import transformer as T
     from repro_torch.runtime.daemon import ServingDaemon
@@ -568,10 +601,7 @@ def main() -> int:
     plain = time_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True), 5)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 20)
-    bsz, heads, s, d = shape
-    pairs = s * (s + 1) // 2
-    b_ms, b_by = bound(4.0 * d * pairs * bsz * heads,
-                       4 * q.numel() * q.element_size(), "bfloat16")
+    b_ms, b_by = bound(*k3_work(shape, True), "bfloat16")
     rows["flash_attention"] = dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:56", max_abs_err=err,
@@ -586,8 +616,7 @@ def main() -> int:
     # StableLM's head dims and MLA's q.k dim at their prefill shapes: both
     # paths, both masks; the tensor-core path timed beside its bound and SDPA
     for d, shape in K3_NEW_SHAPES.items():
-        bsz, heads, s, _ = shape
-        pairs = s * (s + 1) // 2
+        flops = k3_work(shape, True)[0]
         errs = []
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             q, k, v = (randn(shape, dt) for _ in range(3))
@@ -607,8 +636,7 @@ def main() -> int:
             q, k, v, causal=True), 5)
         lib_d = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 20)
-        b_d, by_d = bound(4.0 * d * pairs * bsz * heads,
-                          4 * q.numel() * q.element_size(), "bfloat16")
+        b_d, by_d = bound(*k3_work(shape, True), "bfloat16")
         names = " ".join(e.key for e in kernel_events(torch, lambda: (
             ops.flash_attention(q, k, v, causal=True),
             ops.flash_attention(q[:, :2, :256].float(),
@@ -627,9 +655,46 @@ def main() -> int:
             + f" (tol bf16 2e-2, f32 2e-4, relative {K3_REL_TOL:g}); bf16 "
             f"causal kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms, sdpa "
             f"{lib_d:.4f} ms, bound {b_d:.4f} ms ({by_d}: "
-            f"{4.0 * d * pairs * bsz * heads / 1e9:.1f} GFLOP); the profiler "
+            f"{flops / 1e9:.1f} GFLOP); the profiler "
             f"names flash_fwd_wgmma_kernel<{d}> and "
             f"flash_fwd_kernel<float, {d}>")
+        del q, k, v
+
+    # Qwen2-VL's and Whisper's prefill shapes (phase 3e) and D = 48 at 128
+    # heads, bf16, each against the plain version, timed beside its bound
+    # and SDPA with the same mask; blocks as ``attention._flash`` picks them
+    for key, shape, causal in K3_MODEL_SHAPES:
+        s = shape[2]
+        blk = max(x for x in range(1, 129) if s % x == 0)
+        q, k, v = (randn(shape, torch.bfloat16) for _ in range(3))
+
+        def k3(q=q, k=k, v=v, causal=causal, blk=blk):
+            return ops.flash_attention(q, k, v, causal=causal, bq=blk, bk=blk)
+
+        got, want = k3(), ref.flash_attention(q, k, v, causal=causal)
+        e = max_err(torch, got, want, BF16_TOL)
+        rw, rr = rel_errs(got, want)
+        assert rw < K3_REL_TOL and rr < K3_REL_TOL, \
+            f"K3 {shape} causal={causal}: relative {rw:.3e}, row {rr:.3e}"
+        del got, want
+        ms_m = time_ms(torch, k3, 20)
+        plain_m = time_ms(torch, lambda: ref.flash_attention(
+            q, k, v, causal=causal), 5)
+        lib_m = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), 20)
+        flops, nbytes = k3_work(shape, causal)
+        b_m, by_m = bound(flops, nbytes, "bfloat16")
+        rows["flash_attention"].update({
+            f"{key}max_abs_err": e, f"{key}ms": ms_m,
+            f"{key}plain_ms": plain_m, f"{key}bound_ms": b_m,
+            f"{key}library_ms": lib_m})
+        log(f"[K3 {key[:-1]}] {shape} bf16 {'causal' if causal else 'full'}: "
+            f"err {e:.3e} (tol atol=rtol=2e-2), relative {rw:.3e} whole, "
+            f"{rr:.3e} worst row (tol {K3_REL_TOL:g}); kernel {ms_m:.4f} ms, "
+            f"plain {plain_m:.4f} ms, sdpa {lib_m:.4f} ms "
+            f"(is_causal={causal}), bound {b_m:.4f} ms ({by_m}: "
+            f"{flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB); K3/sdpa {ms_m / lib_m:.2f}")
         del q, k, v
 
     # ---- phase 2b: K1 sliced_matmul -------------------------------------
@@ -1262,9 +1327,12 @@ def main() -> int:
         torch.cuda.synchronize()
         t_init = time.time() - t0
         n_params = T.count_params(wts)
-        leaves = []
-        T._tree_map(leaves.append, wts)
-        gib = sum(a.numel() * a.element_size() for a in leaves) / 2**30
+        # the leaves' sizes, not the leaves: a list of the tensors would
+        # keep the weights alive past ``del wts``, into later phases' peaks
+        sizes = []
+        T._tree_map(lambda a: sizes.append(a.numel() * a.element_size()),
+                    wts)
+        gib = sum(sizes) / 2**30
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         srv = h100_server()
@@ -1331,8 +1399,142 @@ def main() -> int:
         del srv, wts, logits, res
         torch.cuda.empty_cache()
     log(f"[main path] deepseek launches {ds_launches}")
+
+    # ---- phase 3e: Qwen2-VL and Whisper (serve-multimodal), counted --------
+    mm_archs = ("qwen2-vl-7b", "whisper-small")
+    mm_cfg = {arch: get_config(arch) for arch in mm_archs}
+    t0 = time.time()
+    weights = {arch: T.init_params(mm_cfg[arch], torch.Generator(
+        device=dev).manual_seed(0), device=dev) for arch in mm_archs}
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    n_params = {arch: T.count_params(weights[arch]) for arch in mm_archs}
+    qcfg, wcfg = mm_cfg["qwen2-vl-7b"], mm_cfg["whisper-small"]
+    mm_jobs = [Job("tenantL-qwen2vl-prefill", "qwen2-vl-7b", "prefill", 4, 1,
+                   2048),
+               Job("tenantL-qwen2vl-decode", "qwen2-vl-7b", "decode", 8, 8,
+                   4096),
+               Job("tenantM-whisper-prefill", "whisper-small", "prefill", 4,
+                   8, 448),
+               Job("tenantM-whisper-decode", "whisper-small", "decode", 8, 32,
+                   448)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    srv = h100_server()
+    for job in mm_jobs:
+        srv.submit(job, params=weights[job.arch])
+    t_submit = time.time() - t0
+    v5e_rounds = model_decisions(srv, TPU_V5E, tpu_profile_from_costs)
+    res = srv.drain()
+    mm_launches = dict(ops.LAUNCHES)
+    assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
+    runs_l = prefill_runs(res["rounds"], mm_jobs[0].name)
+    runs_m = prefill_runs(res["rounds"], mm_jobs[2].name)
+    k3_l, k3_m = qcfg.num_layers, wcfg.num_layers + wcfg.encoder_layers
+    assert (k3_l, k3_m) == (28, 24), (k3_l, k3_m)
+    assert mm_launches["flash_attention"] == k3_l * runs_l + k3_m * runs_m, \
+        (mm_launches, runs_l, runs_m)
+    logits = {name: srv._exec[name]() for name in srv.jobs}
+    torch.cuda.synchronize()
+    want_shapes = {mm_jobs[0].name: (1, 2048, qcfg.vocab_size),
+                   mm_jobs[1].name: (8, qcfg.vocab_size),
+                   mm_jobs[2].name: (8, 448, wcfg.vocab_size),
+                   mm_jobs[3].name: (32, wcfg.vocab_size)}
+    for name, lg in logits.items():
+        assert tuple(lg.shape) == want_shapes[name], (name, lg.shape)
+        assert bool(torch.isfinite(lg.float()).all()), f"{name}: non-finite"
+    del logits
+    # bf16 K and V a layer: the decode KV cache over the job's seq, and the
+    # cross cache over the encoder's frames
+    cache_gb = {job.name: 2 * 2 * cfg.num_layers * job.batch_per_slice * rows
+                * cfg.num_kv_heads * cfg.head_dim / 1e9
+                for job, cfg, rows in ((mm_jobs[1], qcfg, mm_jobs[1].seq),
+                                       (mm_jobs[3], wcfg, wcfg.encoder_seq))}
+    log(f"[serve-mm] qwen2-vl-7b ({qcfg.num_layers} layers, d_model "
+        f"{qcfg.d_model}, {qcfg.num_heads} heads over {qcfg.num_kv_heads} "
+        f"kv, "
+        f"head dim {qcfg.head_dim}, M-RoPE sections "
+        f"{L.mrope_sections(qcfg.head_dim)}, vocab {qcfg.vocab_size}; "
+        f"{n_params['qwen2-vl-7b'] / 1e9:.3f} B params) and whisper-small "
+        f"({wcfg.encoder_layers} encoder + {wcfg.num_layers} decoder layers, "
+        f"d_model {wcfg.d_model}, {wcfg.num_heads} heads, head dim "
+        f"{wcfg.head_dim}, {wcfg.encoder_seq} frames, vocab "
+        f"{wcfg.vocab_size}; {n_params['whisper-small'] / 1e9:.3f} B params) "
+        f"at full width, uncut, bf16, seeded random weights built in "
+        f"{t_init:.2f} s, each shared by its arch's two tenants, on the H100 "
+        f"model; {len(srv.jobs)} tenants submitted in {t_submit:.2f} s "
+        f"(warm-up included); Qwen2-VL decode KV cache "
+        f"{cache_gb[mm_jobs[1].name]:.3f} GB, Whisper decode cross cache "
+        f"{cache_gb[mm_jobs[3].name]:.3f} GB; drain wall_s "
+        f"{res['wall_s']:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"flash_attention launches {mm_launches['flash_attention']} = "
+        f"{k3_l} x {runs_l} "
+        f"Qwen2-VL + {k3_m} x {runs_m} Whisper prefill runs (warm-up "
+        f"included); logits " + ", ".join(
+            f"{n} {s}" for n, s in want_shapes.items()) + " finite")
+    for k1, k2, n1, n2, cp in res["rounds"]:
+        log(f"[serve-mm] H100 model: round {k1} x {k2}: slices {n1}:{n2}, "
+            f"predicted CP {cp:+.4f}")
+    log(f"[serve-mm] decisions side by side (pair, slices), H100 | v5e: "
+        f"{decisions(res['rounds'])} | {decisions(v5e_rounds)}")
+    log(f"[main path] multimodal launches {mm_launches}")
+    k3_want = {mm_jobs[0].name: ("flash_fwd_wgmma_kernel<128>", k3_l),
+               mm_jobs[2].name: ("flash_fwd_wgmma_kernel<64>", k3_m)}
+    for job in mm_jobs:
+        alone = time_ms(torch, srv._exec[job.name], 3)
+        torch.cuda.reset_peak_memory_stats()
+        srv._exec[job.name]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        evs = kernel_events(torch, srv._exec[job.name])
+        total = sum(e.self_device_time_total for e in evs)
+        assert total > 0, f"{job.name}: the profiler saw no device time"
+        sym, n_want = k3_want.get(job.name, ("flash_fwd", 0))
+        k3 = [e for e in evs if sym in e.key]
+        n_k3 = sum(e.count for e in k3)
+        assert n_k3 == n_want, (job.name, n_k3, [e.key for e in evs])
+        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"[profile {job.name}] step alone {alone:.3f} ms; device time "
+            f"{total / 1e3:.3f} ms in {sum(e.count for e in evs)} kernels "
+            f"(idle {1 - total / 1e3 / alone:.1%}); K3 {sym} {k3_ms:.3f} ms "
+            f"x{n_k3} ({k3_ms / (total / 1e3):.1%}); peak memory {peak:.2f} "
+            f"GiB; top: " + "; ".join(
+                f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
+                f"x{e.count}" for e in top))
+    del srv, res
+    torch.cuda.empty_cache()
+    # the losses, once each on a prefill batch: Qwen2-VL's labels are -1
+    # over the 256 patch rows and the last position
+    for arch, b, s in (("qwen2-vl-7b", 1, 2048), ("whisper-small", 8, 448)):
+        cfg = mm_cfg[arch]
+        raw = make_batch(cfg, b, s)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        masked = int((raw["labels"] < 0).sum())
+        assert masked == b * (1 + VLM_PATCHES * (arch == "qwen2-vl-7b")), \
+            masked
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, metrics = T.train_loss(weights[arch], cfg, batch)
+        loss = float(loss)
+        t_loss = time.perf_counter() - t0
+        assert math.isfinite(loss) and all(math.isfinite(float(v)) for v in
+                                           metrics.values()), (arch, metrics)
+        log(f"[loss {arch}] train_loss on ({b}, {s}) "
+            f"({'patches' if arch == 'qwen2-vl-7b' else 'audio'}, {masked} "
+            f"labels masked): {loss:.4f} (ce {float(metrics['ce']):.4f}, aux "
+            f"{float(metrics['aux']):.4f}; ln V = "
+            f"{math.log(cfg.vocab_size):.4f}), {t_loss * 1e3:.1f} ms, "
+            f"peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del weights, batch
+    torch.cuda.empty_cache()
+
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
-                + ds_launches[name] for name in _build.NAMES}
+                + ds_launches[name] + mm_launches[name]
+                for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
 
@@ -1369,7 +1571,8 @@ def main() -> int:
                                                "h100_fused_over_serial")
                            if k in row},
                         **{k: v for k, v in row.items()
-                           if k.startswith(("d80_", "d160_", "d192_"))}})
+                           if k.startswith(("d80_", "d160_", "d192_", "d128_",
+                                            "d64_", "d48_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

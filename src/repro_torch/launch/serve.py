@@ -110,18 +110,22 @@ class SharedPodServer:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             params = T.init_params(cfg, gen, device=self.device)
         raw = make_batch(cfg, job.batch_per_slice, job.seq)
-        tokens = torch.as_tensor(raw["tokens"], device=self.device)
         if job.phase == "decode":
+            # tokens only, as the reference's: a cross cache stays unfilled
             caches = T.init_decode_caches(cfg, job.batch_per_slice, job.seq,
                                           device=self.device)
-            tok = tokens[:, 0]
+            tok = torch.as_tensor(raw["tokens"][:, 0], device=self.device)
 
             def run(params=params, cfg=cfg, caches=caches, tok=tok):
                 logits, _ = T.decode_step(params, cfg, caches, tok,
                                           job.seq // 2)
                 return logits
         else:
-            def run(params=params, cfg=cfg, batch={"tokens": tokens}):
+            # every key but the labels: the frontend stubs (patches, audio)
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in raw.items() if k != "labels"}
+
+            def run(params=params, cfg=cfg, batch=batch):
                 logits, _, _ = T.forward(params, cfg, batch)
                 return logits
         run()                               # warm-up: builds the kernels

@@ -12,8 +12,10 @@ function through ``full_attention``, ``chunked_attention`` or
 functions for the tests, and the sliding-window ``local`` blocks of
 ``transformer.py`` run on them. Decode attends over the cache with
 einsums; MLA's default decode (``mla_decode="absorbed"``) attends in the
-latent space. A window inside an ``attn`` block and cross-attention wait
-for ROADMAP queue 1, items 18 and 10.
+latent space. Whisper's encoder (non-causal, no cache) takes K3's full
+path; its decoder's cross-attention runs the plain ``full_attention``, as
+the reference's does. A window inside an ``attn`` block waits for ROADMAP
+queue 1, item 18.
 
 Caches are updated in place: a decode step writes its token's k/v into the
 cache it was given and returns the same tensors, where the functional
@@ -179,16 +181,24 @@ def _flash(q, k, v, *, causal: bool):
 # --------------------------------------------------------------------- #
 # GQA block (projection + attention + output)
 # --------------------------------------------------------------------- #
-def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
+def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
+                kv_source=None):
     """x: (B,S,D). cache: dict(k, v) of (B,Smax,kv,hd), updated in place,
-    or None. Returns (out, cache)."""
+    or None. ``kv_source`` (B,Skv,D) makes it cross-attention (Whisper's
+    decoder): k/v are projected from it, no positions apply, and it attends
+    with the plain ``full_attention``, as the reference does (K3 takes q,
+    k and v of one length). Returns (out, cache)."""
     if cfg.attention_kind == "local":
         raise NotImplementedError("a window in an attn block: ROADMAP queue "
                                   "1, item 18")
     b, s, d = x.shape
+    src = x if kv_source is None else kv_source
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if kv_source is not None:
+        o = full_attention(q, k, v, causal=False)
+        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
     q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
     k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
 

@@ -2,9 +2,10 @@
 
 PyTorch counterpart of ``repro/models/layers.py``, with the same numerics:
 norms compute in f32 and scale by ``1 + scale``, ``gelu`` is the tanh
-approximation, and RoPE rotates split halves. Inits draw from an explicit
-``torch.Generator``; they cannot reproduce ``jax.random``'s draws, so the
-tests load the reference's weights through ``repro_torch.convert``.
+approximation, and RoPE and Qwen2-VL's M-RoPE rotate split halves. Inits
+draw from an explicit ``torch.Generator``; they cannot reproduce
+``jax.random``'s draws, so the tests load the reference's weights through
+``repro_torch.convert``.
 """
 from __future__ import annotations
 
@@ -107,23 +108,51 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    d = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
-    ang = positions[..., :, None, None].float() * freqs      # (..., S, 1, d/2)
+def _rotate(x, ang):
+    """Rotate x's split halves by the angles ``ang`` (..., S, 1, d/2)."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
+    ang = positions[..., :, None, None].float() * freqs      # (..., S, 1, d/2)
+    return _rotate(x, ang)
+
+
+def mrope_sections(head_dim: int) -> tuple:
+    """3-way split of the d/2 frequency bands (temporal, height, width)."""
+    h2 = head_dim // 2
+    a = h2 // 4
+    b = (h2 - a) // 2
+    return (a, b, h2 - a - b)
+
+
+def apply_mrope(x, positions3, theta: float = 10000.0):
+    """Multimodal RoPE (Qwen2-VL). positions3: (..., 3, S) t/h/w position
+    ids, each driving its own contiguous band of frequencies; where
+    t == h == w this is RoPE."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
+    p = positions3.float()
+    parts, start = [], 0
+    for axis, n in enumerate(mrope_sections(d)):
+        parts.append(p[..., axis, :, None] * freqs[start:start + n])
+        start += n
+    return _rotate(x, torch.cat(parts, dim=-1)[..., :, None, :])
+
+
 def positional(x, q_pos, pos_kind: str, theta: float):
     if pos_kind == "rope":
         return apply_rope(x, q_pos, theta)
-    if pos_kind == "mrope":
-        raise NotImplementedError(
-            "mrope (qwen2-vl): ROADMAP queue 1, item 6")
+    if pos_kind == "mrope":        # 1-D ids: the same id on all three axes
+        p3 = q_pos[..., None, :].expand(*q_pos.shape[:-1], 3,
+                                        q_pos.shape[-1])
+        return apply_mrope(x, p3, theta)
     return x                                                   # learned/none
 
 

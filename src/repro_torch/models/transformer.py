@@ -3,16 +3,17 @@
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
 (GQA or MLA) ``attn``, sliding-window ``local``, ``rwkv6`` and ``rglru``
 block kinds, each with a dense MLP or, past ``moe.first_dense_layers``, a
-MoE FFN. Parameters keep the reference's stacked layout —
-``params["stage<i>"]["sub<j>"]`` holds each weight with a leading
-``repeats`` axis, and DeepSeek-V3's ``mtp`` head sits where the reference
-puts it — so converting the reference's weights is a tree-map
-(``repro_torch.convert``). Where the reference runs each stage under
-``lax.scan`` with remat, this runs a Python loop over the stack under
-``torch.inference_mode()``, and writes every cache in place. Sharding
-(``constrain``) and the expert-parallel MoE are ROADMAP queue 1, item 14;
-cross-attention, learned positions and the MTP loss raise or wait for
-item 10.
+MoE FFN; Whisper's encoder, learned positions and cross-attention; the
+Qwen2-VL patch prefix; and the losses. Parameters keep the reference's
+stacked layout — ``params["stage<i>"]["sub<j>"]`` holds each weight with a
+leading ``repeats`` axis, and DeepSeek-V3's ``mtp`` head, Whisper's ``enc``
+subtree and the ``pos_embed`` tables sit where the reference puts them — so
+converting the reference's weights is a tree-map (``repro_torch.convert``).
+Where the reference runs each stage under ``lax.scan`` with remat, this
+runs a Python loop over the stack and writes every cache in place.
+``forward`` runs under ``torch.inference_mode()``; ``train_loss`` runs the
+same body (``_forward``) outside it. Sharding (``constrain``) and the
+expert-parallel MoE are ROADMAP queue 1, item 14.
 """
 from __future__ import annotations
 
@@ -70,8 +71,6 @@ def _check_supported(cfg, sig):
     kind, _ = sig
     if kind not in ("attn", "local", "rwkv6", "rglru"):
         raise ValueError(kind)
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("cross-attention: ROADMAP queue 1, item 10")
 
 
 def _torch_dtype(name_or_dtype):
@@ -83,7 +82,8 @@ def _torch_dtype(name_or_dtype):
 # ===================================================================== #
 # per-block init / apply
 # ===================================================================== #
-def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
+def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead,
+                cross: bool = False):
     _check_supported(cfg, sig)
     kind, is_moe = sig
     kw = dict(device=device, lead=lead)
@@ -96,6 +96,10 @@ def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
         p["tmix"] = R.init_rwkv6(generator, cfg, n_layers, dtype=dtype, **kw)
     else:
         p["rec"] = R.init_rglru(generator, cfg, n_layers, dtype=dtype, **kw)
+    if cross:
+        p["norm_x"] = L.init_norm(cfg.norm, cfg.d_model, **kw)
+        p["xattn"] = A.init_attention(generator, cfg, n_layers, dtype=dtype,
+                                      **kw)
     if kind == "rwkv6":
         p["cmix"] = R.init_rwkv6_cmix(generator, cfg, n_layers, dtype=dtype,
                                       **kw)
@@ -107,28 +111,37 @@ def _init_block(generator, cfg, sig, n_layers, *, dtype, device, lead):
     return p
 
 
-def _init_block_cache(cfg, sig, batch, max_len, *, dtype, device, lead):
+def _init_block_cache(cfg, sig, batch, max_len, *, dtype, device, lead,
+                      cross_len: int = 0):
+    """A block's cache; ``cross_len`` > 0 adds the cross-attention K/V
+    (``xk``, ``xv``) over that many encoder rows."""
     kind, _ = sig
     lead = tuple(lead)
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "attn":
-        return A.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
-                            lead=lead)
-    if kind == "local":
+        c = A.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
+                         lead=lead)
+    elif kind == "local":
         w = min(cfg.local_window, max_len)
         shape = lead + (batch, w, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "pos": torch.full(lead + (w,), -1, dtype=torch.int32,
-                                  device=device)}
-    if kind == "rwkv6":
+        c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "pos": torch.full(lead + (w,), -1, dtype=torch.int32,
+                               device=device)}
+    elif kind == "rwkv6":
         h, n = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        return {"state": torch.zeros(lead + (batch, h, n, n), **f32),
-                "x_last_t": torch.zeros(lead + (batch, cfg.d_model), **f32),
-                "x_last_c": torch.zeros(lead + (batch, cfg.d_model), **f32)}
-    w = cfg.lru_width
-    return {"h": torch.zeros(lead + (batch, w), **f32),
-            "conv": torch.zeros(lead + (batch, R.CONV_WIDTH - 1, w), **f32)}
+        c = {"state": torch.zeros(lead + (batch, h, n, n), **f32),
+             "x_last_t": torch.zeros(lead + (batch, cfg.d_model), **f32),
+             "x_last_c": torch.zeros(lead + (batch, cfg.d_model), **f32)}
+    else:
+        w = cfg.lru_width
+        c = {"h": torch.zeros(lead + (batch, w), **f32),
+             "conv": torch.zeros(lead + (batch, R.CONV_WIDTH - 1, w), **f32)}
+    if cross_len:
+        shape = lead + (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def _local_ring_update(cache, k_new, v_new, positions):
@@ -199,10 +212,13 @@ def _store(cache, key, value):
         cache[key].copy_(value)
 
 
-def apply_block(x, bp, cfg, sig, positions, *, cache=None, t=None):
+def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
+                t=None):
     """One block. ``cache`` (the block's views into the stacked caches) is
-    updated in place. Returns (x, cache, aux), ``aux`` the MoE FFN's
-    load-balance loss (0 for a dense FFN)."""
+    updated in place. A block with ``xattn`` attends over ``enc_out`` (and
+    writes its K/V into the cache's ``xk``/``xv``), or, given a cache and
+    no ``enc_out``, over the cached ``xk``/``xv``. Returns (x, cache, aux),
+    ``aux`` the MoE FFN's load-balance loss (0 for a dense FFN)."""
     _check_supported(cfg, sig)
     kind, is_moe = sig
     aux = torch.zeros((), device=x.device)
@@ -228,6 +244,24 @@ def apply_block(x, bp, cfg, sig, positions, *, cache=None, t=None):
             _store(cache, "h", ns["h"])
             _store(cache, "conv", ns["conv"])
     x = x + a
+    if "xattn" in bp:                                      # cross-attention
+        hx = L.norm(x, bp["norm_x"], cfg.norm)
+        xp = bp["xattn"]
+        if cache is not None and enc_out is None:
+            # decode: attend over the cross K/V in the cache, as it stands
+            q = torch.einsum("bsd,dhk->bshk", hx, xp["wq"])
+            o = A.decode_attention(q, cache["xk"], cache["xv"],
+                                   cache["xk"].shape[1])
+            o = torch.einsum("bshk,hkd->bsd", o, xp["wo"])
+        else:
+            o, _ = A.gqa_forward(hx, xp, cfg, positions, causal=False,
+                                 kv_source=enc_out)
+            if cache is not None:                          # store cross K/V
+                cache["xk"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
+                                               xp["wk"]))
+                cache["xv"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
+                                               xp["wv"]))
+        x = x + o
     h2 = L.norm(x, bp["norm2"], cfg.norm)
     if kind == "rwkv6":
         f, x_last_c = R.rwkv6_cmix(
@@ -260,18 +294,28 @@ def init_params(cfg, generator, device="cuda", dtype=None):
     params: dict = {"embed": L.embed_init(generator, (v, d), dtype=dtype,
                                           device=device)}
     if cfg.pos_kind == "learned":
-        raise NotImplementedError("learned positions (whisper): ROADMAP "
-                                  "queue 1, item 10")
+        params["pos_embed"] = L.embed_init(
+            generator, (max(32768, cfg.encoder_seq), d), dtype=dtype,
+            device=device)
+    cross = cfg.is_encoder_decoder
     for si, st in enumerate(stage_plan(cfg)):
         params[f"stage{si}"] = {
             f"sub{ci}": _init_block(generator, cfg, sig, cfg.num_layers,
                                     dtype=dtype, device=device,
-                                    lead=(st.repeats,))
+                                    lead=(st.repeats,), cross=cross)
             for ci, sig in enumerate(st.cycle)}
     params["final_norm"] = L.init_norm(cfg.norm, d, device=device)
     params["lm_head"] = L.dense_init(generator, (d, v), dtype=dtype,
                                      device=device)
-    if cfg.mtp:     # DeepSeek-V3's head; its loss (_mtp_loss) is item 10
+    if cross:       # Whisper's encoder
+        params["enc"] = {
+            "stage0": {"sub0": _init_block(
+                generator, cfg, ("attn", False), cfg.encoder_layers,
+                dtype=dtype, device=device, lead=(cfg.encoder_layers,))},
+            "final_norm": L.init_norm(cfg.norm, d, device=device),
+            "pos_embed": L.embed_init(generator, (cfg.encoder_seq, d),
+                                      dtype=dtype, device=device)}
+    if cfg.mtp:     # DeepSeek-V3's multi-token prediction head
         params["mtp"] = {
             "norm_h": L.init_norm(cfg.norm, d, device=device),
             "norm_e": L.init_norm(cfg.norm, d, device=device),
@@ -292,7 +336,8 @@ def count_params(params) -> int:
 # ===================================================================== #
 # forward
 # ===================================================================== #
-def _run_stages(params, cfg, x, positions, *, caches=None, t=None):
+def _run_stages(params, cfg, x, positions, *, enc_out=None, caches=None,
+                t=None):
     """Every stage's blocks in order. Returns (x, the blocks' summed aux
     loss)."""
     aux = torch.zeros((), device=x.device)
@@ -305,18 +350,43 @@ def _run_stages(params, cfg, x, positions, *, caches=None, t=None):
                 bp = _tree_map(lambda a: a[r], sp[sub])
                 cc = _tree_map(lambda a: a[r], cs[sub]) if cs is not None \
                     else None
-                x, _, a = apply_block(x, bp, cfg, sig, positions, cache=cc,
-                                      t=t)
+                x, _, a = apply_block(x, bp, cfg, sig, positions,
+                                      enc_out=enc_out, cache=cc, t=t)
                 aux = aux + a
     return x, aux
 
 
-@torch.inference_mode()
-def forward(params, cfg, batch, *, caches=None, t=None):
-    """batch: tokens (B,S) [+ positions]. Returns (logits, caches, aux).
+def _embed(params, cfg, tokens, positions, patches=None):
+    x = params["embed"][tokens]
+    if cfg.pos_kind == "learned":
+        x = x + params["pos_embed"][positions].to(x.dtype)
+    if patches is not None:       # the VLM stub: patches replace the prefix
+        npatch = patches.shape[1]
+        x = torch.cat([patches.to(x.dtype), x[:, npatch:]], dim=1)
+    return x
 
-    ``caches`` are updated in place and returned; ``aux`` is the MoE
-    blocks' summed load-balance loss (0 without MoE), as the reference's."""
+
+def encode(params, cfg, audio):
+    """Whisper's encoder over precomputed frame embeddings (the conv stub):
+    the learned positions, ``encoder_layers`` non-causal blocks (K3's full
+    path), the final norm."""
+    enc = params["enc"]
+    x = audio.to(_torch_dtype(cfg.dtype)) + enc["pos_embed"][None]
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    stack = enc["stage0"]["sub0"]
+    for r in range(cfg.encoder_layers):
+        bp = _tree_map(lambda a: a[r], stack)
+        h = L.norm(x, bp["norm1"], cfg.norm)
+        a, _ = A.gqa_forward(h, bp["attn"], cfg, pos, causal=False)
+        x = x + a
+        x = x + L.mlp(L.norm(x, bp["norm2"], cfg.norm), bp["mlp"], cfg.act)
+    return L.norm(x, enc["final_norm"], cfg.norm)
+
+
+def _forward(params, cfg, batch, *, caches=None, t=None,
+             return_hidden=False):
+    """``forward``'s body, outside ``inference_mode`` (``train_loss``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if "positions" in batch:
@@ -324,15 +394,81 @@ def forward(params, cfg, batch, *, caches=None, t=None):
     else:
         positions = (t or 0) + torch.arange(s, device=tokens.device)
         positions = positions[None].expand(b, s)
-    for key in ("patches", "audio"):
-        if key in batch:
-            raise NotImplementedError(f"{key} frontend: ROADMAP queue 1, "
-                                      "item 10")
-    x = params["embed"][tokens]
-    x, aux = _run_stages(params, cfg, x, positions, caches=caches, t=t)
+    enc_out = None
+    if cfg.is_encoder_decoder and "audio" in batch:
+        enc_out = encode(params, cfg, batch["audio"])
+    x = _embed(params, cfg, tokens, positions, batch.get("patches"))
+    x, aux = _run_stages(params, cfg, x, positions, enc_out=enc_out,
+                         caches=caches, t=t)
     h_final = L.norm(x, params["final_norm"], cfg.norm)
     logits = h_final @ params["lm_head"]
+    if return_hidden:
+        return logits, caches, aux, h_final
     return logits, caches, aux
+
+
+@torch.inference_mode()
+def forward(params, cfg, batch, *, caches=None, t=None, return_hidden=False):
+    """batch: tokens (B,S) [+ patches (B,P,D) | audio (B,Se,D) |
+    positions]. Returns (logits, caches, aux[, hidden]).
+
+    ``caches`` are updated in place and returned; ``aux`` is the MoE
+    blocks' summed load-balance loss (0 without MoE), as the reference's."""
+    return _forward(params, cfg, batch, caches=caches, t=t,
+                    return_hidden=return_hidden)
+
+
+# ===================================================================== #
+# losses
+# ===================================================================== #
+def softmax_xent(logits, labels, mask, impl: str = "gather"):
+    """Mean negative log-likelihood over ``mask``; labels < 0 are clipped
+    to 0 before the lookup (and masked out by the caller)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = labels.clamp(min=0).long()
+    if impl == "onehot":          # select + reduce instead of a gather
+        iota = torch.arange(lf.shape[-1], device=lf.device)
+        ll = torch.where(iota == lab[..., None], lf, 0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(lf, -1, lab[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _mtp_loss(params, cfg, h_final, tokens, labels, mask):
+    """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t; emb_{t+1}],
+    shifted by one and padded back to S (the padded tail masked out)."""
+    mp = params["mtp"]
+    pad = torch.nn.functional.pad
+    h = L.norm(pad(h_final[:, :-1], (0, 0, 0, 1)), mp["norm_h"], cfg.norm)
+    shifted = pad(tokens[:, 1:], (0, 1))
+    e = L.norm(params["embed"][shifted], mp["norm_e"], cfg.norm)
+    x = torch.cat([h, e], dim=-1) @ mp["proj"]
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    bp = _tree_map(lambda a: a[0], mp["block"]["sub0"])
+    x, _, _ = apply_block(x, bp, cfg, ("attn", False), pos)
+    logits = x @ params["lm_head"]
+    lab2 = pad(labels[:, 1:], (0, 1), value=-1)
+    m2 = pad(mask[:, 1:], (0, 1))
+    return softmax_xent(logits, lab2, m2, cfg.xent_impl)
+
+
+def train_loss(params, cfg, batch):
+    """batch: tokens (B,S), labels (B,S) (-1 = masked), + frontend stubs.
+    Returns (loss, metrics) as the reference's; loss values only here (the
+    optimizer and training are ROADMAP queue 1, items 12 and 13)."""
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logits, _, aux, h = _forward(params, cfg, batch, return_hidden=True)
+    loss = softmax_xent(logits, labels, mask, cfg.xent_impl)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp:
+        mtp = _mtp_loss(params, cfg, h, batch["tokens"], labels, mask)
+        metrics["mtp"] = mtp
+        loss = loss + 0.1 * mtp
+    return loss + aux, metrics
 
 
 # ===================================================================== #
@@ -342,6 +478,7 @@ def forward(params, cfg, batch, *, caches=None, t=None):
 def init_decode_caches(cfg, batch: int, max_len: int, dtype=None,
                        device="cuda"):
     dtype = _torch_dtype(dtype or cfg.dtype)
+    cross_len = cfg.encoder_seq if cfg.is_encoder_decoder else 0
     caches = {}
     for si, st in enumerate(stage_plan(cfg)):
         for sig in st.cycle:
@@ -349,7 +486,8 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=None,
         caches[f"stage{si}"] = {
             f"sub{ci}": _init_block_cache(cfg, sig, batch, max_len,
                                           dtype=dtype, device=device,
-                                          lead=(st.repeats,))
+                                          lead=(st.repeats,),
+                                          cross_len=cross_len)
             for ci, sig in enumerate(st.cycle)}
     return caches
 

@@ -1,6 +1,6 @@
 """The yardsticks ``chip_smoke.py`` holds the kernels' times against: the
 card's least time for the work (``bound``), the least time of a matmul cut
-into slices (``sliced_bound_ms``), K4's work and bound (``wkv6_work``,
+into slices (``sliced_bound_ms``), K3's work (``k3_work``), K4's work and bound (``wkv6_work``,
 ``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), and
 what ``trace_report`` reads from K2's trace. Pure arithmetic from the H100's
 data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
@@ -51,6 +51,25 @@ def test_importing_chip_smoke_leaves_torch_out():
 def test_bound(smoke, flops, nbytes, want_ms, by):
     dtype = "float32" if by == "bytes" else "bfloat16"
     ms, got_by = smoke.bound(flops, nbytes, dtype)
+    assert got_by == by
+    assert ms == pytest.approx(want_ms, abs=5e-5)
+
+
+@pytest.mark.parametrize("shape,causal,gflop,mb,want_ms,by", [
+    ((1, 28, 2048, 128), True, 30.08, 58.7, 0.0304, "operations"),
+    ((8, 12, 1500, 64), False, 55.30, 73.7, 0.0559, "operations"),
+    ((8, 12, 448, 64), True, 2.47, 22.0, 0.0066, "bytes"),
+    ((1, 128, 2048, 48), True, 51.56, 100.7, 0.0521, "operations"),
+    ((1, 32, 2048, 96), True, 25.78, 50.3, 0.0261, "operations"),
+])
+def test_k3_work_and_bound(smoke, shape, causal, gflop, mb, want_ms, by):
+    """K3's work at phase 3e's prefill shapes (Qwen2-VL <128> causal,
+    Whisper's encoder <64> full at S = 1500 and decoder prompt <64> causal
+    at 448), at D = 48 with 128 heads, and at Phi-3's D = 96."""
+    flops, nbytes = smoke.k3_work(shape, causal)
+    assert flops / 1e9 == pytest.approx(gflop, abs=5e-3)
+    assert nbytes / 1e6 == pytest.approx(mb, abs=0.05)
+    ms, got_by = smoke.bound(flops, nbytes, "bfloat16")
     assert got_by == by
     assert ms == pytest.approx(want_ms, abs=5e-5)
 

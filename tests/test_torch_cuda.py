@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
@@ -135,6 +136,57 @@ def test_reduced_deepseek_forward_matches_the_cpu(cuda, arch):
     assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
     assert abs(float(aux) - float(want_aux)) < 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_whisper_encoder_width(cuda, causal):
+    """Whisper's encoder shape, (2, 12, 1500, 64) bf16, both masks: 1500 =
+    11 x 128 + 92 query rows and 28 keys in the last 64-key tile, whose
+    rows past S TMA fills with zeros; a zero key scores 0, not -inf, so the
+    full path's edge mask must hold. Blocks of 125, as ``_flash`` picks."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(2, 12, 1500, 64, generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=causal, bq=125, bk=125),
+        ref.flash_attention(q, k, v, causal=causal), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small"])
+def test_reduced_multimodal_prefill_and_decode_match_the_cpu(cuda, arch):
+    """Reduced Qwen2-VL (M-RoPE, 32 patch rows) and Whisper (encoder over
+    16 frames, cross-attention) in f32 on the card against the same
+    weights' forward on the CPU (1e-3: f32 on both, sums in another order):
+    K3 once a decoder layer and once an encoder layer, in the forward and
+    in the prefill into the caches, and never in the decode steps, whose
+    logits match the CPU's teacher-forced forward."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    raw = make_batch(cfg, 2, 64)
+    batch = {k: torch.from_numpy(v) for k, v in raw.items() if k != "labels"}
+    want, _, _ = T.forward(params, cfg, batch)
+    on_card = T._tree_map(lambda a: a.to(cuda), params)
+    card = {k: v.to(cuda) for k, v in batch.items()}
+    n_k3 = cfg.num_layers + cfg.encoder_layers
+    ops.reset_launches()
+    got, _, _ = T.forward(on_card, cfg, card)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n_k3
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    caches = T.init_decode_caches(cfg, 2, 64, dtype=torch.float32,
+                                  device=cuda)
+    ops.reset_launches()
+    lp, caches = T.prefill(on_card, cfg,
+                           dict(card, tokens=card["tokens"][:, :32]), caches)
+    for pos in range(32, 36):
+        lg, caches = T.decode_step(on_card, cfg, caches,
+                                   card["tokens"][:, pos], pos)
+        torch.testing.assert_close(lg.cpu(), want[:, pos], atol=1e-3,
+                                   rtol=1e-3)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n_k3
+    torch.testing.assert_close(lp.cpu(), want[:, :32], atol=1e-3, rtol=1e-3)
 
 
 def test_stablelm_3b_prefill_at_full_width(cuda):
