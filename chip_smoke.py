@@ -66,6 +66,26 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      encoder and 12 causal in the decoder), never at decode; each step
      profiled alone with its peak memory; ``train_loss`` once on each
      arch's prefill batch, finite;
+  2f. (run after 2e) K3, K4 and K5 through their autograd Functions at the
+     training path's shapes (phi3-mini's attention at 4096 tokens,
+     rwkv6-1.6b's time mix and recurrentgemma-9b's RG-LRU at 2048): the
+     forward is the kernel's output bit for bit in one launch, the backward
+     launches no kernel of the port, and every input's gradient is finite
+     and equals autograd through an f32 plain version; forward and backward
+     timed;
+  5. (run after 3e) training, counted the same way: ``make_train_step``
+     with the reference's ``OptConfig`` (f32 moments) for 3 steps on one
+     repeated batch at full width: phi3-mini-3.8b uncut (1 x 4096, K3 64
+     launches a step: 32 layers, forward and remat), rwkv6-1.6b uncut
+     (1 x 2048, K4 48) and recurrentgemma-9b cut to 3 layers (1 x 2048, K5
+     4), one arch's weights at a time; each step's loss finite, every
+     gradient leaf present, finite and nonzero, the third loss below the
+     first (for rwkv6-1.6b, whose loss rises from its seeded init under the
+     reference's arithmetic too, the same steps run again with the plain
+     form in place of K4 and the first losses agree); step times, AdamW's time beside its bound, training MFU, peak
+     memory and one profiled step's top kernels; then the reduced
+     ``train()`` through a failure at step 6 and a restore from the
+     checkpoint of step 5 (the first batch's loss falls over training);
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan are the scheduler's model predictions, labelled
@@ -512,6 +532,361 @@ def drain_report(torch, srv, twin, res, res_twin, slices, label: str,
     return seen
 
 
+# phase 2f: each kernel's autograd Function at the training path's shapes,
+# (B, S, ...) as the model hands them over: phi3-mini's attention at
+# TRAIN_4K's length, rwkv6-1.6b's time mix and recurrentgemma-9b's RG-LRU
+# at 2048 tokens, with the model's dtypes (K5's x and a_log are f32 there)
+K3_TRAIN = (1, 4096, 32, 96)
+K4_TRAIN = (1, 2048, 32, 64)
+K5_TRAIN = (1, 2048, 4096)
+# a bf16 gradient against autograd through an independent f32 plain
+# version (the full S x S attention, the sequential recurrences): 5e-2 of
+# max(1, the gradient's largest entry), i.e. 5e-2 abs on unit-scale
+# gradients, and the error's norm within 1e-2 of the gradient's
+GRAD_TOL = 5e-2
+GRAD_REL_TOL = 1e-2
+# phase 5: (arch, depth cut (None: uncut), batch, seq, kernel op, its
+# profiler symbol, its launches a step: each layer of its kind once in the
+# forward and once in the remat recompute, whether the loss must fall over
+# the steps). rwkv6-1.6b from its seeded init has a gradient norm of ~5e9
+# (its u and the layernorm of a time-mix row that is exactly zero at t = 0)
+# and its loss rises under the reference's arithmetic too (the plain forms
+# in place of K4, run beside it), so there only the twin run is compared
+TRAIN_CELLS = (("phi3-mini-3.8b", None, 1, 4096, "flash_attention",
+                "flash_fwd_wgmma_kernel<96>", 64, True),
+               ("rwkv6-1.6b", None, 1, 2048, "rwkv6_scan",
+                "wkv6_out_kernel", 48, False),
+               ("recurrentgemma-9b", 3, 1, 2048, "rg_lru", K5_KERNEL, 4,
+                True))
+# the kernel path's first loss (before any update) against the plain
+# forms': the forward through K4 differs only in summation order, which 24
+# layers from this init amplify to ~0.1%
+TWIN_LOSS_REL = 1e-2
+TRAIN_STEPS = 3
+
+
+def grad_errs(got, want):
+    """(max abs error over max(1, max |want|), error norm over want's)."""
+    g, w = got.float(), want.float()
+    d = g - w
+    return (float(d.abs().max()) / max(1.0, float(w.abs().max())),
+            float(d.norm() / w.norm().clamp_min(1e-30)))
+
+
+def named_leaves(tree, prefix=""):
+    """(key path, leaf) of nested dicts."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def adamw_bytes(params, state) -> int:
+    """The bytes one AdamW step must move: each parameter read and written,
+    its gradient (in the parameter's dtype) read, mu and nu read and
+    written."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in named_leaves(tree))
+    return 3 * nbytes(params) + 2 * nbytes(state["mu"]) \
+        + 2 * nbytes(state["nu"])
+
+
+def autograd_phase(torch, ops, ref, A, R, randn, rows) -> None:
+    """Phase 2f: K3, K4 and K5 through their autograd Functions at the
+    training shapes. The forward is the kernel's output bit for bit and
+    launches it once; the backward launches none of the port's kernels;
+    each input's gradient is finite and equals autograd through an f32
+    plain version (``GRAD_TOL``, ``GRAD_REL_TOL``). Times the forward and
+    the backward (CUDA events)."""
+    b, s, h, d = K3_TRAIN
+    q, k, v = (randn((b, s, h, d), torch.bfloat16) for _ in range(3))
+
+    def bhsd(t):
+        return t.transpose(1, 2)
+
+    k3 = dict(
+        name="flash_attention", args=(q, k, v), dtype="bf16 q/k/v",
+        fn=lambda q, k, v: (A.FlashAttention.apply(q, k, v, True),),
+        kernel=lambda q, k, v: (A._flash_fwd(q, k, v, causal=True),),
+        plain=lambda q, k, v: (bhsd(ref.flash_attention(
+            bhsd(q), bhsd(k), bhsd(v), causal=True)),),
+        plain_name="the full S x S f32 attention")
+    b, s, h, n = K4_TRAIN
+    r4, k4, v4 = (randn((b, s, h, n), torch.bfloat16) for _ in range(3))
+    w4 = -torch.exp(randn((b, s, h, n), torch.float32) - 1.0)
+    u4 = randn((h, n), torch.float32) * 0.1
+    s4 = torch.zeros(b, h, n, n, device=q.device)
+
+    def k4_kernel(r, k, v, w_log, u, state):
+        final = state.clone()
+        return ops.rwkv6_scan(r, k, v, w_log, u, state=final), final
+
+    k4_case = dict(
+        name="rwkv6_scan", args=(r4, k4, v4, w4, u4, s4),
+        dtype="bf16 r/k/v, f32 w_log/u/state",
+        fn=lambda *xs: R.WKV6.apply(*xs, 32), kernel=k4_kernel,
+        plain=ref.rwkv6, plain_name="the sequential f32 recurrence")
+    b, s, w = K5_TRAIN
+    x5 = randn((b, s, w), torch.float32)
+    a5 = -torch.exp(randn((b, s, w), torch.float32) - 4.0)
+    h5 = torch.zeros(b, w, device=q.device)
+    k5 = dict(
+        name="rg_lru", args=(x5, a5, h5), dtype="f32 x/a_log/h0",
+        fn=lambda x, a, h0: (R.RGLRU.apply(x, a, h0),),
+        kernel=lambda x, a, h0: (ops.rg_lru(x, a, chunk=s, bw=w, h0=h0),),
+        plain=lambda x, a, h0: (ref.rg_lru(x, a, h0),),
+        plain_name="the sequential f32 recurrence")
+    for case in (k3, k4_case, k5):
+        name, args = case["name"], case["args"]
+        leaves = [t.detach().requires_grad_() for t in args]
+        cot = [randn(o.shape, torch.float32).to(o.dtype)
+               for o in case["kernel"](*args)]
+        ops.reset_launches()
+        outs = case["fn"](*leaves)
+        fwd_launches = dict(ops.LAUNCHES)
+        grads = torch.autograd.grad(outs, leaves, cot)
+        torch.cuda.synchronize()
+        assert fwd_launches[name] == 1 and sum(fwd_launches.values()) == 1, \
+            (name, fwd_launches)
+        assert ops.LAUNCHES == fwd_launches, \
+            f"{name}: the backward launched a kernel: {ops.LAUNCHES}"
+        with torch.no_grad():
+            direct = case["kernel"](*args)
+        for o, want in zip(outs, direct):
+            assert torch.equal(o.detach(), want), \
+                f"{name}: the Function's forward is not the kernel's output"
+        f32 = [t.detach().float().requires_grad_() for t in args]
+        want = torch.autograd.grad(case["plain"](*f32), f32,
+                                   [c.float() for c in cot])
+        errs = []
+        for i, (g, wg) in enumerate(zip(grads, want)):
+            assert bool(torch.isfinite(g).all()), (name, i)
+            e_abs, e_rel = grad_errs(g, wg)
+            assert e_abs <= GRAD_TOL and e_rel <= GRAD_REL_TOL, \
+                (name, i, e_abs, e_rel)
+            errs.append((e_abs, e_rel))
+        del outs, grads, want, f32, direct
+        fwd_ms = time_ms(torch, lambda: case["fn"](*leaves), 3)
+        both_ms = time_ms(torch, lambda: torch.autograd.grad(
+            case["fn"](*leaves), leaves, cot), 3)
+        rows[name].update(train_fwd_ms=fwd_ms, train_bwd_ms=both_ms - fwd_ms,
+                          train_grad_err=max(e for e, _ in errs))
+        log(f"[2f {name}] {tuple(args[0].shape)} {case['dtype']} through "
+            f"its autograd Function: forward = the kernel's output bit for "
+            f"bit, 1 launch; backward 0 launches; gradients of "
+            f"{len(errs)} inputs finite, against autograd through "
+            f"{case['plain_name']}: max abs err / max(1, max|grad|) "
+            + ", ".join(f"{e:.3e}" for e, _ in errs) + " (tol "
+            f"{GRAD_TOL:g}), norm-relative " + ", ".join(
+                f"{r:.3e}" for _, r in errs) + f" (tol {GRAD_REL_TOL:g}); "
+            f"forward {fwd_ms:.3f} ms, backward {both_ms - fwd_ms:.3f} ms "
+            f"(CUDA events, mean of 3)")
+        del leaves, cot, case, args
+    del q, k, v, r4, k4, v4, w4, u4, s4, x5, a5, h5
+    torch.cuda.empty_cache()
+
+
+def training_phase(torch, dev, card) -> dict:
+    """Phase 5: ``make_train_step`` at full width with the reference's
+    ``OptConfig`` (f32 moments), ``TRAIN_STEPS`` steps of each
+    ``TRAIN_CELLS`` arch on one fixed ``SyntheticLoader(seed=0)`` batch, one
+    arch's weights at a time; then the reduced ``train()`` through a
+    failure and a restore. Returns the kernel launches of the steps and of
+    ``train()``."""
+    import repro_torch.optim.adamw as adamw
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLoader
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+
+    total = dict.fromkeys(_build.NAMES, 0)
+    real_update = adamw.update
+    seen = {}
+
+    def checked_update(cfg, params, grads, state):
+        """adamw.update, after a check of every gradient leaf (present,
+        finite, nonzero) and timed alone."""
+        named = named_leaves(grads)
+        seen["grads_ok"] = torch.stack([torch.isfinite(g).all()
+                                        & (g != 0).any() for _, g in named])
+        seen["names"] = [n for n, _ in named]
+        seen["norms"] = torch.stack([torch.linalg.vector_norm(g).float()
+                                     for _, g in named])
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = real_update(cfg, params, grads, state)
+        e1.record()
+        seen["opt_events"] = (e0, e1)
+        return out
+
+    def run(arch, cfg, b, s):
+        """``TRAIN_STEPS`` steps from the seeded init: (params, state,
+        step, batch, losses, step seconds, AdamW ms, launches a step,
+        (grad norm, largest leaf, its norm) a step)."""
+        params = T.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        opt_cfg = adamw.OptConfig()
+        state = adamw.init(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg)
+        raw = SyntheticLoader(cfg, b, s, seed=0).load(0)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        losses, step_s, opt_ms, launched, norms = [], [], [], [], []
+        for i in range(TRAIN_STEPS):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            e0, e1 = seen["opt_events"]
+            opt_ms.append(e0.elapsed_time(e1))
+            launched.append(dict(ops.LAUNCHES))
+            ok = seen["grads_ok"].tolist()
+            bad = [n for n, good in zip(seen["names"], ok) if not good]
+            assert not bad, f"{arch} step {i}: gradients absent, " \
+                f"non-finite or zero: {bad}"
+            losses.append(float(m["loss"]))
+            assert math.isfinite(losses[-1]), (arch, losses)
+            top = int(seen["norms"].argmax())
+            norms.append((float(m["grad_norm"]), seen["names"][top],
+                          float(seen["norms"][top])))
+        return (params, state, step, batch, losses, step_s, opt_ms, launched,
+                norms)
+
+    adamw.update = checked_update
+    try:
+        for arch, depth, b, s, op, sym, per_step, falls in TRAIN_CELLS:
+            full = get_config(arch)
+            cfg = (dataclasses.replace(full, num_layers=depth) if depth
+                   else full)
+            kind = {"flash_attention": "attn", "rwkv6_scan": "rwkv6",
+                    "rg_lru": "rglru"}[op]
+            n_kind = cfg.layer_kinds().count(kind)
+            assert cfg.remat and 2 * n_kind == per_step, (arch, n_kind)
+            torch.cuda.reset_peak_memory_stats()
+            params, state, step, batch, losses, step_s, opt_ms, launched, \
+                norms = run(arch, cfg, b, s)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_params = T.count_params(params)
+            for got in launched:
+                for name in _build.NAMES:
+                    total[name] += got[name]
+                assert got[op] == per_step and \
+                    sum(got.values()) == per_step, (arch, got)
+            if falls:
+                assert losses[-1] < losses[0], (arch, losses)
+            opt_bytes = adamw_bytes(params, state)
+            evs = kernel_events(torch, lambda: step(params, state, batch),
+                                lambda evs: n_launches(evs, sym) == per_step)
+            dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+            assert dev_ms > 0, f"{arch}: the profiler saw no device time"
+            n_sym = n_launches(evs, sym)
+            assert n_sym == per_step, (arch, sym, n_sym)
+            sym_ms = sum(e.self_device_time_total for e in evs
+                         if sym in e.key) / 1e3
+            top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+            step_ms = median_range(step_s[1:])[0] * 1e3
+            mfu = 6 * n_params * b * s / (step_ms / 1e3) / PEAK_FLOPS[
+                "bfloat16"]
+            opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
+            cut = (f"cut num_layers {full.num_layers} -> {depth}" if depth
+                   else "uncut")
+            log(f"[train {arch}] {cut}, full width, bf16 params, f32 AdamW "
+                f"moments (OptConfig defaults), remat on, batch {b} x seq "
+                f"{s}: {n_params / 1e9:.3f} B params; losses "
+                f"{', '.join(f'{x:.4f}' for x in losses)} on one repeated "
+                f"batch{' (falling, asserted)' if falls else ''}; grad norms "
+                + ", ".join(f"{g:.4g} (largest {n} {x:.4g})"
+                            for g, n, x in norms) + "; "
+                f"{len(seen['names'])} gradient leaves present, finite and "
+                f"nonzero each step; {op} launches {per_step} a step "
+                f"({n_kind} layers x 2, forward and remat); step times "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, median "
+                f"of the later {step_ms:.1f} ms; AdamW "
+                f"{', '.join(f'{x:.2f}' for x in opt_ms)} ms (CUDA events) "
+                f"against its bound {opt_bound:.2f} ms ({opt_bytes / 1e9:.2f} "
+                f"GB at 3.35 TB/s); training MFU 6NT/(step x 989 TFLOP/s) "
+                f"{mfu:.2%}; peak memory {peak:.2f} GiB; {card}")
+            log(f"[profile train {arch}] one more step profiled: device "
+                f"time {dev_ms:.1f} ms in {sum(e.count for e in evs)} "
+                f"kernels (idle {1 - dev_ms / step_ms:.1%} of the median "
+                f"step); {sym} {sym_ms:.3f} ms x{n_sym}; top: " + "; ".join(
+                    f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+            del params, state, step, batch, evs
+            torch.cuda.empty_cache()
+            if falls:
+                continue
+            # the same steps with the plain form the reference trains
+            # through in place of the kernel, forward included
+            real_apply = R.WKV6.apply
+            R.WKV6.apply = lambda r, k, v, w, u, s0, c: R.rwkv6_chunked(
+                r, k, v, w, u, s0, chunk=c)
+            try:
+                twin = run(arch, cfg, b, s)
+            finally:
+                R.WKV6.apply = real_apply
+            plain = twin[4]
+            assert all(sum(got.values()) == 0 for got in twin[7]), twin[7]
+            assert abs(losses[0] - plain[0]) <= TWIN_LOSS_REL * plain[0], \
+                (arch, losses, plain)
+            log(f"[train {arch} plain] the same {TRAIN_STEPS} steps with "
+                f"rwkv6_chunked in place of K4 (no kernel launched): losses "
+                f"{', '.join(f'{x:.4f}' for x in plain)} (K4's "
+                f"{', '.join(f'{x:.4f}' for x in losses)}; first within "
+                f"{TWIN_LOSS_REL:g}); step times "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in twin[5])} ms")
+            del twin
+            torch.cuda.empty_cache()
+    finally:
+        adamw.update = real_update
+    # the reference's test_train_loop_end_to_end on the card, with a
+    # restore that loads a checkpoint: ckpt_every is max(8 // 4, 5) = 5,
+    # so step 5 is saved before the failure at 6 and run once more after.
+    # Each step's batch is another draw of uniform tokens, and the losses of
+    # two batches differ by ~0.1 (the first and last run's fall or rise with
+    # the seed, on the CPU too), so the fall is asserted on one batch, the
+    # first, before and after training
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res = train("stablelm-3b", use_reduced=True, steps=8, batch=4,
+                    seq=32, ckpt_dir=ckpt_dir, fail_at={6: 1}, device=dev)
+        files = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    for name in _build.NAMES:
+        total[name] += ops.LAUNCHES[name]
+    losses = res["losses"]
+    assert res["steps"] == 8 and len(losses) == 9, (res["steps"], losses)
+    assert losses[5] == losses[6], ("step 5 after the restore", losses)
+    assert files == ["ckpt_00000005.npz", "ckpt_00000008.npz",
+                     "manifest.json"], files
+    n_k3 = ops.LAUNCHES["flash_attention"]
+    assert n_k3 == 9 * res["cfg"].num_layers, n_k3
+    cfg = res["cfg"]
+    first = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticLoader(cfg, 4, 32, seed=0).load(0).items()}
+    init = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    with torch.no_grad():
+        before = float(T.train_loss(init, cfg, first)[0])
+        after = float(T.train_loss(res["params"], cfg, first)[0])
+    assert abs(before - losses[0]) <= 1e-4 * before and after < before, \
+        (before, after, losses)
+    log(f"[train loop] train('stablelm-3b', use_reduced=True, steps=8, "
+        f"batch=4, seq=32, fail_at={{6: 1}}) on the card: {res['steps']} "
+        f"steps, 9 runs (step 5 restored from its checkpoint and run again, "
+        f"its loss the same, {losses[6]:.4f}), losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; the first batch's loss "
+        f"{before:.4f} -> {after:.4f} after training (asserted to fall); "
+        f"checkpoints {files}, flash_attention launches {n_k3} (9 runs x "
+        f"{cfg.num_layers} layers, no remat in the reduced config), "
+        f"{res['seconds']:.2f} s")
+    return total
+
+
 def main() -> int:
     if not __debug__:
         sys.exit("chip_smoke: its checks are asserts; run it without -O")
@@ -536,6 +911,7 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.kernels import sliced_matmul as SM
     from repro_torch.launch.serve import Job, SharedPodServer, card_spec
+    from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models import recurrent as R
     from repro_torch.models import transformer as T
@@ -1114,6 +1490,9 @@ def main() -> int:
         f"at 3.35 TB/s); no one PyTorch call computes it")
     del xs, als, xb, ab, h0, zeros, init, first, second
 
+    # ---- phase 2f: K3, K4 and K5 through their autograd Functions ---------
+    autograd_phase(torch, ops, ref, A, R, randn, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -1555,8 +1934,12 @@ def main() -> int:
     del weights, batch
     torch.cuda.empty_cache()
 
+    # ---- phase 5: training, counted ----------------------------------------
+    train_launches = training_phase(torch, dev, card)
+    log(f"[main path] training launches {train_launches}")
+
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
-                + ds_launches[name] + mm_launches[name]
+                + ds_launches[name] + mm_launches[name] + train_launches[name]
                 for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
@@ -1595,7 +1978,7 @@ def main() -> int:
                            if k in row},
                         **{k: v for k, v in row.items()
                            if k.startswith(("d80_", "d160_", "d192_", "d128_",
-                                            "d64_", "d48_"))}})
+                                            "d64_", "d48_", "train_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

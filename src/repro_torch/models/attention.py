@@ -24,6 +24,10 @@ every step.
 
 A prompt of more than one token written into a cache at t > 0 raises
 (ROADMAP queue 3, fault 8): the reference attends there as if t were 0.
+
+While autograd records (training), K3 runs inside ``FlashAttention``:
+its forward is the kernel, its backward autograd through
+``plain_attention``, the form the reference trains through.
 """
 from __future__ import annotations
 
@@ -166,7 +170,47 @@ def decode_attention(q, k_cache, v_cache, t, *, window: int = 0):
 
 
 def _flash(q, k, v, *, causal: bool):
-    """(B,S,H,hd) q and (B,S,kv,hd) k/v through ops.flash_attention."""
+    """(B,S,H,hd) q and (B,S,kv,hd) k/v through ops.flash_attention; while
+    autograd records, through ``FlashAttention``, whose backward is the
+    reference's plain attention."""
+    if L.records_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+    return _flash_fwd(q, k, v, causal=causal)
+
+
+def plain_attention(q, k, v, *, causal: bool):
+    """The attention the reference trains through, as ``gqa_forward``
+    picks it with no cache: ``full_attention`` up to two blocks, else
+    ``chunked_attention`` (so no S x S f32 matrix is held at S = 4096)."""
+    s = q.shape[1]
+    blk = _pick_block(s, k.shape[1])
+    if s <= 2 * blk:
+        return full_attention(q, k, v, causal=causal)
+    return chunked_attention(q, k, v, causal=causal, q_block=blk,
+                             kv_block=blk)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 under autograd: the forward is the kernel (``_flash_fwd``), the
+    backward autograd through ``plain_attention`` recomputed from q, k, v.
+    No Pallas kernel of the reference has a backward: it trains by XLA
+    autodiff of these plain forms."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_fwd(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return L.plain_vjp(
+            lambda q, k, v: plain_attention(q, k, v, causal=ctx.causal),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (g,)) + (None,)
+
+
+def _flash_fwd(q, k, v, *, causal: bool):
+    """K3's forward (the plain version on the CPU)."""
     g = q.shape[2] // k.shape[2]
     s = q.shape[1]
     blk = _pick_block(s, s, 128)

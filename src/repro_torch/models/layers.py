@@ -176,3 +176,30 @@ def mlp(x, p, act: str):
     else:
         h = act_fn(act)(h)
     return h @ p["wo"]
+
+
+# --------------------------------------------------------------------- #
+# autograd around the kernels
+# --------------------------------------------------------------------- #
+def records_grad(*tensors) -> bool:
+    """Whether autograd is recording a graph through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def plain_vjp(plain, inputs, needs, grad_outputs):
+    """A kernel's backward: autograd through ``plain``, the form the
+    reference differentiates, recomputed from the saved ``inputs``.
+    ``needs`` (``ctx.needs_input_grad``) says which inputs want a gradient;
+    the others get None."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs,
+                                                                  needs)]
+        outs = plain(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+                 if o.requires_grad and g is not None]
+        want = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if x.requires_grad else None for x in xs)

@@ -11,6 +11,12 @@ decode step is plain PyTorch, as in the reference.
 States are updated in place where a kernel can write them:
 ``ops.rwkv6_scan`` overwrites the (B, H, N, N) state it is given with the
 final one, so a prefill writes straight into its cache.
+
+While autograd records (training), K4 and K5 run inside ``WKV6`` and
+``RGLRU``: the forward is the kernel, the backward autograd through
+``rwkv6_chunked`` and ``rglru_scan`` recomputed from the inputs, the forms
+the reference trains through; ``WKV6`` returns the final state as a new
+tensor instead of writing the caller's.
 """
 from __future__ import annotations
 
@@ -96,24 +102,31 @@ def rwkv6_chunked(r, k, v, w_log, u, state, chunk: int = 32):
     reference model multiplies by the mask instead, and above the diagonal
     the exponent is >= 0: where it overflows f32, inf * 0 gives NaN there
     (ROADMAP queue 3, item 4). Wherever the reference is finite the two
-    agree exactly."""
+    agree exactly. This is also the form ``WKV6``'s backward differentiates,
+    so the exponent is masked before ``exp`` too."""
     b, s, h, n = r.shape
     if s % chunk:
         raise ValueError((s, chunk))
     ii = torch.arange(chunk, device=r.device)
     lower = (ii[:, None] > ii[None, :])[None, :, :, None]      # (1,C,C,1)
     outs = []
-    for c0 in range(0, s, chunk):
-        rr, kk, vv = (a[:, c0:c0 + chunk].float() for a in (r, k, v))
-        ww = w_log[:, c0:c0 + chunk].float()                   # (B,C,H,N)
+    # chunks by ``split``, whose backward is one concatenation (a slice's
+    # would write a zero tensor of the whole sequence for each chunk)
+    for rr, kk, vv, ww in zip(*(a.split(chunk, dim=1)
+                                for a in (r, k, v, w_log))):
+        rr, kk, vv, ww = rr.float(), kk.float(), vv.float(), ww.float()
         la = torch.cumsum(ww, dim=1)                           # (B,C,H,N) <=0
         la_prev = la - ww                                      # exclusive
         la_end = la[:, -1:]                                    # (B,1,H,N)
         # inter-chunk: out_i += (r_i * exp(la_prev_i)) @ S
         r_dec = rr * torch.exp(la_prev)
         out = torch.einsum("bchn,bhnm->bchm", r_dec, state)
-        # intra-chunk: att[i,j] = sum_n r_i k_j exp(la_prev_i - la_j), j<i
-        dmat = torch.exp(la_prev[:, :, None] - la[:, None, :, :])
+        # intra-chunk: att[i,j] = sum_n r_i k_j exp(la_prev_i - la_j), j<i;
+        # the exponent is zeroed above the diagonal before exp, so neither
+        # the values nor their gradient meet inf there
+        dmat = torch.exp(torch.where(lower[..., None],
+                                     la_prev[:, :, None] - la[:, None, :, :],
+                                     0.0))
         att = torch.einsum("bihn,bjhn,bijhn->bijh", rr, kk, dmat)
         att = torch.where(lower, att, 0.0)
         out = out + torch.einsum("bijh,bjhn->bihn", att, vv)
@@ -136,6 +149,29 @@ def rwkv6_step(r, k, v, w_log, u, state):
     return out, state
 
 
+class WKV6(torch.autograd.Function):
+    """K4 under autograd: the forward is ``ops.rwkv6_scan`` on a copy of
+    the initial state, returned as the final state (the kernel overwrites
+    the state it is given); the backward is autograd through
+    ``rwkv6_chunked`` recomputed from r, k, v, w_log, u and the initial
+    state, the form the reference trains through."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, state, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, w_log, u, state)
+        final = state.clone()
+        out = ops.rwkv6_scan(r, k, v, w_log, u, chunk=chunk, state=final)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return L.plain_vjp(
+            lambda *xs: rwkv6_chunked(*xs, chunk=ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:6],
+            (g_out, g_state)) + (None,)
+
+
 def _shifted(x, x_last):
     """The previous token of each position: x_last (or zeros) first."""
     if x_last is None:
@@ -148,7 +184,9 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
 
     state/x_last: decode carries ((B,H,N,N) f32, (B,D)). Returns
     (out, (state, x_last)). A multi-token call overwrites ``state`` with the
-    final state (``ops.rwkv6_scan``); a one-token step returns a new one."""
+    final state (``ops.rwkv6_scan``), or, while autograd records, returns
+    it as a new tensor of the graph (``WKV6``); a one-token step returns a
+    new one."""
     b, s, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
@@ -164,9 +202,11 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
                               p["u"], state)
         o = o[:, None]
     else:
-        c = chunk if s % chunk == 0 else int(np.gcd(s, chunk))
-        o = ops.rwkv6_scan(rh, kh, vh, wh, p["u"], chunk=max(c, 1),
-                           state=state)
+        c = max(chunk if s % chunk == 0 else int(np.gcd(s, chunk)), 1)
+        if L.records_grad(rh, kh, vh, wh, p["u"], state):
+            o, state = WKV6.apply(rh, kh, vh, wh, p["u"], state, c)
+        else:
+            o = ops.rwkv6_scan(rh, kh, vh, wh, p["u"], chunk=c, state=state)
     o2 = o.reshape(b, s, d)
     o2 = L.layernorm(o2.to(x.dtype), p["ln_out"]["scale"],
                      p["ln_out"]["bias"])                      # group-norm approx
@@ -246,18 +286,37 @@ def rglru_scan(x, a_log, h0):
 
     x (B,S,W) f32, a_log (B,S,W) f32 (log a_t <= 0), h0 (B,W) f32. The
     reference runs ``lax.associative_scan``; torch has none, so this is a
-    loop over time (equal up to f32 rounding order). Returns (h, h_last).
+    loop over time (equal up to f32 rounding order). The steps come from
+    ``unbind``, whose backward is one stack (indexing a step would write a
+    zero tensor of the whole sequence for each step). Returns (h, h_last).
     """
-    a = torch.exp(a_log)
-    b_term = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log),
-                                    min=1e-12)) * x
-    h = b_term[:, 0] + a[:, 0] * h0          # initial state folded in
+    a = torch.exp(a_log).unbind(1)
+    b_term = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log),
+                                     min=1e-12)) * x).unbind(1)
+    h = b_term[0] + a[0] * h0                # initial state folded in
     hs = [h]
     for t in range(1, x.shape[1]):
-        h = a[:, t] * h + b_term[:, t]
+        h = a[t] * h + b_term[t]
         hs.append(h)
     hh = torch.stack(hs, dim=1)
     return hh, hh[:, -1]
+
+
+class RGLRU(torch.autograd.Function):
+    """K5 under autograd: the forward is ``ops.rg_lru`` from ``h0``, the
+    backward autograd through ``rglru_scan`` recomputed from x, a_log and
+    h0, the recurrence the reference trains through."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, h0):
+        ctx.save_for_backward(x, a_log, h0)
+        return ops.rg_lru(x, a_log, chunk=x.shape[1], bw=x.shape[2], h0=h0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return L.plain_vjp(lambda x, a_log, h0: rglru_scan(
+            x.float(), a_log.float(), h0.float())[0], ctx.saved_tensors,
+            ctx.needs_input_grad, (g,))
 
 
 def rglru_forward(x, p, cfg, *, state=None):
@@ -288,7 +347,10 @@ def rglru_forward(x, p, cfg, *, state=None):
     else:
         # one block over the whole call: the reference model scans any S,
         # and the chunk/bw tiling checks belong to the TPU kernel's grid
-        y = ops.rg_lru(xin, a_log, chunk=s, bw=w, h0=state["h"])
+        if L.records_grad(xin, a_log, state["h"]):
+            y = RGLRU.apply(xin, a_log, state["h"])
+        else:
+            y = ops.rg_lru(xin, a_log, chunk=s, bw=w, h0=state["h"])
         h_last = y[:, -1]
     out = (y.to(x.dtype) * gate) @ p["w_out"]
     return out, {"h": h_last, "conv": conv_state}

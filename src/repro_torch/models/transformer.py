@@ -9,19 +9,23 @@ stacked layout — ``params["stage<i>"]["sub<j>"]`` holds each weight with a
 leading ``repeats`` axis, and DeepSeek-V3's ``mtp`` head, Whisper's ``enc``
 subtree and the ``pos_embed`` tables sit where the reference puts them — so
 converting the reference's weights is a tree-map (``repro_torch.convert``).
-Where the reference runs each stage under ``lax.scan`` with remat, this
-runs a Python loop over the stack and writes every cache in place.
-``forward`` runs under ``torch.inference_mode()``; ``train_loss`` runs the
-same body (``_forward``) outside it. Sharding (``constrain``) and the
+Where the reference runs each stage under ``lax.scan``, this runs a Python
+loop over the stack (``unbind`` once a stage, whose backward is one stack)
+and writes every cache in place. ``forward`` runs under
+``torch.inference_mode()``; ``train_loss`` runs the same body
+(``_forward``) outside it, where gradients flow through the kernels'
+autograd Functions, and ``cfg.remat`` wraps each repeat's blocks (and each
+encoder layer) in ``torch.utils.checkpoint``, as the reference wraps its
+scan bodies in ``jax.checkpoint``. Sharding (``constrain``) and the
 expert-parallel MoE are ROADMAP queue 1, item 14.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -327,6 +331,22 @@ def init_params(cfg, generator, device="cuda", dtype=None):
     return params
 
 
+def _unstack(tree, n: int) -> list:
+    """A stacked tree as ``n`` trees, one a leading index, by ``unbind``."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` and
+    autograd records (the reference remats only outside decode)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def count_params(params) -> int:
     leaves = []
     _tree_map(leaves.append, params)
@@ -342,17 +362,26 @@ def _run_stages(params, cfg, x, positions, *, enc_out=None, caches=None,
     loss)."""
     aux = torch.zeros((), device=x.device)
     for si, st in enumerate(stage_plan(cfg)):
-        sp = params[f"stage{si}"]
+        layers = _unstack(params[f"stage{si}"], st.repeats)
         cs = caches.get(f"stage{si}") if caches is not None else None
         for r in range(st.repeats):
-            for ci, sig in enumerate(st.cycle):
-                sub = f"sub{ci}"
-                bp = _tree_map(lambda a: a[r], sp[sub])
-                cc = _tree_map(lambda a: a[r], cs[sub]) if cs is not None \
-                    else None
-                x, _, a = apply_block(x, bp, cfg, sig, positions,
-                                      enc_out=enc_out, cache=cc, t=t)
-                aux = aux + a
+            cc = {sub: _tree_map(lambda a: a[r], c) for sub, c in cs.items()} \
+                if cs is not None else None
+
+            def body(x, _lp=layers[r], _cc=cc, _st=st):
+                aux_r = torch.zeros((), device=x.device)
+                for ci, sig in enumerate(_st.cycle):
+                    sub = f"sub{ci}"
+                    x, _, a = apply_block(
+                        x, _lp[sub], cfg, sig, positions, enc_out=enc_out,
+                        cache=_cc[sub] if _cc is not None else None, t=t)
+                    aux_r = aux_r + a
+                return x, aux_r
+
+            # a cache is written in place, so a body with one is never
+            # recomputed
+            x, a = _remat(cfg, body, x) if cc is None else body(x)
+            aux = aux + a
     return x, aux
 
 
@@ -374,13 +403,15 @@ def encode(params, cfg, audio):
     x = audio.to(_torch_dtype(cfg.dtype)) + enc["pos_embed"][None]
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    stack = enc["stage0"]["sub0"]
-    for r in range(cfg.encoder_layers):
-        bp = _tree_map(lambda a: a[r], stack)
+    def body(x, bp):
         h = L.norm(x, bp["norm1"], cfg.norm)
         a, _ = A.gqa_forward(h, bp["attn"], cfg, pos, causal=False)
         x = x + a
-        x = x + L.mlp(L.norm(x, bp["norm2"], cfg.norm), bp["mlp"], cfg.act)
+        return x + L.mlp(L.norm(x, bp["norm2"], cfg.norm), bp["mlp"],
+                         cfg.act)
+
+    for bp in _unstack(enc["stage0"]["sub0"], cfg.encoder_layers):
+        x = _remat(cfg, body, x, bp)
     return L.norm(x, enc["final_norm"], cfg.norm)
 
 
@@ -457,8 +488,9 @@ def _mtp_loss(params, cfg, h_final, tokens, labels, mask):
 
 def train_loss(params, cfg, batch):
     """batch: tokens (B,S), labels (B,S) (-1 = masked), + frontend stubs.
-    Returns (loss, metrics) as the reference's; loss values only here (the
-    optimizer and training are ROADMAP queue 1, items 12 and 13)."""
+    Returns (loss, metrics) as the reference's. Called with autograd on,
+    the loss carries the graph to every parameter leaf that requires a
+    gradient (``repro_torch.launch.steps.make_train_step``)."""
     labels = batch["labels"]
     mask = (labels >= 0).float()
     logits, _, aux, h = _forward(params, cfg, batch, return_hidden=True)

@@ -1,8 +1,9 @@
 """The yardsticks ``chip_smoke.py`` holds the kernels' times against: the
 card's least time for the work (``bound``), the least time of a matmul cut
 into slices (``sliced_bound_ms``), K3's work (``k3_work``), K4's work and bound (``wkv6_work``,
-``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), and
-what ``trace_report`` reads from K2's trace. Pure arithmetic from the H100's
+``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), what
+``trace_report`` reads from K2's trace, and training's yardsticks (AdamW's
+bytes, the gradient errors, each training cell's launches). Pure arithmetic from the H100's
 data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
 inside ``main``."""
 import importlib.util
@@ -197,3 +198,41 @@ def test_ptxas_entries_name_each_instance(smoke):
                                      ([4, 1, 3, 2], (2.5, 1, 4))])
 def test_median_range(smoke, xs, want):
     assert smoke.median_range(xs) == want
+
+
+def test_adamw_bytes_and_grad_errs(smoke):
+    """Phase 5's AdamW bound counts 22 bytes a parameter for bf16 params
+    with f32 moments (param read and written, its bf16 gradient read, mu
+    and nu read and written); phase 2f's gradient errors are the max abs
+    error over max(1, max |want|) and the norm ratio."""
+    import torch
+    params = {"a": torch.zeros(3, 4, dtype=torch.bfloat16),
+              "b": {"c": torch.zeros(5, dtype=torch.bfloat16)}}
+    state = {"mu": {"a": torch.zeros(3, 4), "b": {"c": torch.zeros(5)}},
+             "nu": {"a": torch.zeros(3, 4), "b": {"c": torch.zeros(5)}}}
+    assert smoke.adamw_bytes(params, state) == 22 * 17
+    assert [n for n, _ in smoke.named_leaves(params)] == ["/a", "/b/c"]
+    # phi3-mini's 3.821 B parameters at 3.35 TB/s: ~25 ms
+    assert 22 * 3.821e9 / smoke.HBM_BYTES_PER_S * 1e3 == \
+        pytest.approx(25.09, abs=0.01)
+    want = torch.tensor([0.5, -2.0, 4.0])
+    got = want + torch.tensor([0.0, 0.1, -0.2])
+    e_abs, e_rel = smoke.grad_errs(got, want)
+    assert e_abs == pytest.approx(0.2 / 4.0)
+    assert e_rel == pytest.approx(math.sqrt(0.05) / math.sqrt(20.25))
+    small = torch.tensor([0.01, 0.02])
+    assert smoke.grad_errs(small + 0.01, small)[0] == pytest.approx(0.01)
+
+
+def test_training_cells_count_their_kernels(smoke):
+    """Each training cell's launches a step are twice its layers of the
+    kernel's kind (forward and remat recompute), from the configs."""
+    sys.path.insert(0, str(_PATH.parent / "src"))
+    from repro_torch.configs import get_config
+    kinds = {"flash_attention": "attn", "rwkv6_scan": "rwkv6",
+             "rg_lru": "rglru"}
+    for arch, depth, _, _, op, _, per_step, _ in smoke.TRAIN_CELLS:
+        cfg = get_config(arch)
+        n = cfg.layer_kinds()[:depth or cfg.num_layers].count(kinds[op])
+        assert cfg.remat and 2 * n == per_step, (arch, n, per_step)
+    assert [c[6] for c in smoke.TRAIN_CELLS] == [64, 48, 4]

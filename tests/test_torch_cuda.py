@@ -503,3 +503,136 @@ def test_recurrent_server_drains_through_k4_and_k5(cuda):
         kinds["rwkv6-1.6b"].count("rwkv6") * runs["c-prefill"]
     assert ops.LAUNCHES["rg_lru"] == \
         kinds["recurrentgemma-9b"].count("rglru") * runs["e-prefill"]
+
+
+def _k3_case(gen, cuda, dtype):
+    q = torch.randn(2, 200, 4, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 200, 2, 64, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    from repro_torch.models import attention as A
+    return ("flash_attention", (q, k, v),
+            lambda q, k, v: (A.FlashAttention.apply(q, k, v, True),),
+            lambda q, k, v: (A._flash_fwd(q, k, v, causal=True),),
+            lambda q, k, v: (A.plain_attention(q, k, v, causal=True),))
+
+
+def _k4_case(gen, cuda, dtype):
+    r, k, v = (torch.randn(1, 96, 2, 64, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    w = -torch.exp(torch.randn(1, 96, 2, 64, generator=gen, device=cuda) - 1)
+    u = torch.randn(2, 64, generator=gen, device=cuda) * 0.1
+    s0 = torch.randn(1, 2, 64, 64, generator=gen, device=cuda) * 0.1
+
+    def kernel(r, k, v, w, u, s0):
+        final = s0.clone()
+        return ops.rwkv6_scan(r, k, v, w, u, state=final), final
+    return ("rwkv6_scan", (r, k, v, w, u, s0),
+            lambda *xs: R.WKV6.apply(*xs, 32), kernel,
+            lambda *xs: R.rwkv6_chunked(*xs, chunk=32))
+
+
+def _k5_case(gen, cuda, dtype):
+    x = torch.randn(2, 300, 64, generator=gen, device=cuda).to(dtype)
+    a = -torch.exp(torch.randn(2, 300, 64, generator=gen, device=cuda) - 3)
+    h0 = torch.randn(2, 64, generator=gen, device=cuda)
+    return ("rg_lru", (x, a.to(dtype), h0),
+            lambda *xs: (R.RGLRU.apply(*xs),),
+            lambda x, a, h0: (ops.rg_lru(x, a, chunk=300, bw=64, h0=h0),),
+            lambda x, a, h0: (R.rglru_scan(x.float(), a.float(), h0)[0],))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [_k3_case, _k4_case, _k5_case])
+def test_autograd_functions_on_the_card(cuda, case, dtype):
+    """K3's, K4's and K5's autograd Functions: the forward is the kernel's
+    output bit for bit in one launch, the backward launches none of the
+    port's kernels, and each input's gradient equals autograd through the
+    plain form on the same inputs (f32 1e-4, bf16 2e-2 of max(1, the
+    gradient's largest entry))."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    name, args, fn, kernel, plain = case(gen, cuda, dtype)
+    leaves = [t.detach().requires_grad_() for t in args]
+    cot = [torch.randn(o.shape, generator=gen, device=cuda).to(o.dtype)
+           for o in kernel(*args)]
+    ops.reset_launches()
+    outs = fn(*leaves)
+    assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+    grads = torch.autograd.grad(outs, leaves, cot)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+    with torch.no_grad():
+        for o, w in zip(outs, kernel(*args)):
+            assert torch.equal(o.detach(), w)
+    ref_leaves = [t.detach().requires_grad_() for t in args]
+    want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, cot)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(grads, want):
+        assert bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * max(1.0, float(w.float().abs().max())), err
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """A reduced stablelm-3b train step in f32 on the card against the
+    same step on the CPU: the loss and every leaf's gradient within 1e-3
+    relative (of the leaf's largest entry), K3 once a layer, and the
+    step's loss and grad norm within 1e-3."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config("stablelm-3b"))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    raw = make_batch(cfg, 2, 64)
+    results = {}
+    for dev in ("cpu", cuda):
+        p = T._tree_map(lambda a: a.to(dev).requires_grad_(), params)
+        leaves = []
+        T._tree_map(leaves.append, p)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        ops.reset_launches()
+        loss, _ = T.train_loss(p, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+        p = T._tree_map(lambda a: a.detach().clone(), p)
+        opt = adamw.OptConfig()
+        _, _, m = make_train_step(cfg, opt)(p, adamw.init(opt, p), batch)
+        results[str(dev)] = (float(loss), [g.cpu() for g in grads],
+                             float(m["loss"]), float(m["grad_norm"]))
+    want, got = results["cpu"], results[str(cuda)]
+    assert abs(got[0] - want[0]) <= 1e-3 * abs(want[0])
+    for g, w in zip(got[1], want[1]):
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    for i in (2, 3):
+        assert abs(got[i] - want[i]) <= 1e-3 * abs(want[i])
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A (params, opt_state) checkpoint saved from the card restores onto
+    the CPU, and the CPU's back onto the card, every leaf equal and in the
+    template's dtype and device (bf16 params, int32 step)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    opt = adamw.OptConfig()
+    state = (params, adamw.init(opt, params))
+    store.save(str(tmp_path / "card"), 2, state)
+    on_cpu = T._tree_map(lambda a: torch.zeros_like(a, device="cpu"),
+                         {"p": state[0], "s": state[1]})
+    (p_cpu, s_cpu), step = store.restore(str(tmp_path / "card"),
+                                         (on_cpu["p"], on_cpu["s"]))
+    assert step == 2 and s_cpu["step"].dtype == torch.int32
+    assert p_cpu["embed"].device.type == "cpu"
+    assert p_cpu["embed"].dtype == torch.bfloat16
+    assert torch.equal(p_cpu["embed"], params["embed"].cpu())
+    store.save(str(tmp_path / "cpu"), 3, (p_cpu, s_cpu))
+    (p_back, _), _ = store.restore(str(tmp_path / "cpu"), state)
+    flat_a, flat_b = [], []
+    T._tree_map(flat_a.append, params)
+    T._tree_map(flat_b.append, p_back)
+    for a, b in zip(flat_a, flat_b):
+        assert b.device == a.device and b.dtype == a.dtype
+        assert torch.equal(a, b)
