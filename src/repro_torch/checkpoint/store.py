@@ -9,7 +9,10 @@ the reference's key paths: dict keys by name, tuple and list items as
 ``#0/stage0/sub0/attn/wq`` and ``#1/mu/...``). npz has no bfloat16, so
 bf16 leaves are upcast to f32 on save; restore casts every array to the
 template leaf's dtype and puts it on the template leaf's device.
-Re-sharding on restore (``shardings=``) is ROADMAP queue 1, item 14.
+``shardings=`` (a matching tree of ``models.sharding.NamedSharding``, as
+``param_shardings`` gives) places each leaf by its spec on its mesh: a
+``DTensor`` from ``distribute_tensor``, or, where every placement is
+``Replicate`` (a (1, 1) mesh), the plain tensor.
 """
 from __future__ import annotations
 
@@ -48,9 +51,21 @@ def _flatten(tree):
     return {"/".join(path): _to_numpy(leaf) for path, leaf in _items(tree)}
 
 
+class _Deferred:
+    """A leaf that ``np.savez`` turns into its array only as it writes it,
+    so a save holds one leaf's host copy at a time."""
+    __slots__ = ("leaf",)
+
+    def __init__(self, leaf):
+        self.leaf = leaf
+
+    def __array__(self, dtype=None, copy=None):
+        return _to_numpy(self.leaf)
+
+
 def save(directory: str, step: int, tree, *, keep: int = 3) -> str:
     os.makedirs(directory, exist_ok=True)
-    arrays = _flatten(tree)
+    arrays = {"/".join(path): _Deferred(leaf) for path, leaf in _items(tree)}
     fname = os.path.join(directory, f"ckpt_{step:08d}.npz")
     tmp = os.path.join(directory, f".tmp_{step:08d}_{os.getpid()}.npz")
     np.savez(tmp, **arrays)
@@ -92,17 +107,35 @@ def _rebuild(template, data, prefix=()):
     return arr
 
 
+def _place(leaf, sharding):
+    """``leaf`` laid out by ``sharding`` on its mesh."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    placements = sharding.placements()
+    if all(isinstance(p, Replicate) for p in placements):
+        return leaf
+    return distribute_tensor(leaf, sharding.mesh, placements)
+
+
+def _zip_map(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, x, o) for x, o in zip(tree, other))
+    return fn(tree, other)
+
+
 def restore(directory: str, template, step: Optional[int] = None,
             shardings=None):
     """Restore into the structure of ``template``: each leaf in the
-    template leaf's dtype, and a tensor on its device. Returns (tree,
+    template leaf's dtype, and a tensor on its device; then, given
+    ``shardings``, each tensor placed by its sharding. Returns (tree,
     step)."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto a mesh (shardings=): ROADMAP "
-                                  "queue 1, item 14")
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {directory}")
     with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
-        return _rebuild(template, data), step
+        tree = _rebuild(template, data)
+    if shardings is not None:
+        tree = _zip_map(_place, tree, shardings)
+    return tree, step

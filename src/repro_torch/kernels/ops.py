@@ -4,8 +4,10 @@
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises; a CPU tensor goes to the plain version: ``ref`` for K1-K3, and for
 K4 and K5 the model's own chunked and scanned forms in
-``repro_torch.models.recurrent``. Nothing else
-selects the path: there is no counterpart of ``REPRO_PALLAS_INTERPRET``.
+``repro_torch.models.recurrent``. A meta tensor (the dry run's, shapes and
+no data) goes to the plain version too: no kernel can run on it. Nothing
+else selects the path: there is no counterpart of
+``REPRO_PALLAS_INTERPRET``.
 ``LAUNCHES`` counts the kernels' launches by name.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ reset_launches = _build.reset_launches
 
 
 def _on_cpu(t) -> bool:
-    return t.device.type == "cpu"
+    """Whether ``t`` takes the plain version: a CPU or a meta tensor."""
+    return t.device.type in ("cpu", "meta")
 
 
 def sliced_matmul(a, b, *, slice_size: int = 4, bm: int = 128,
@@ -61,7 +64,8 @@ def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):
     if _on_cpu(r):
         from repro_torch.models.recurrent import rwkv6_chunked
         b, _, h, n = r.shape
-        s0 = state if state is not None else torch.zeros(b, h, n, n)
+        s0 = state if state is not None else torch.zeros(b, h, n, n,
+                                                         device=r.device)
         out, final = rwkv6_chunked(r, k, v, w_log, u, s0,
                                    chunk=min(chunk, r.shape[1]))
         if state is not None:
@@ -78,6 +82,6 @@ def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
     if _on_cpu(x):
         from repro_torch.models.recurrent import rglru_scan
         if h0 is None:
-            h0 = torch.zeros(x.shape[0], x.shape[2])
+            h0 = torch.zeros(x.shape[0], x.shape[2], device=x.device)
         return rglru_scan(x.float(), a_log.float(), h0.float())[0]
     return _lru.rg_lru(x, a_log, h0=h0)

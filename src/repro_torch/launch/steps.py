@@ -4,8 +4,8 @@ PyTorch counterpart of ``repro/launch/steps.py``. The train step takes the
 gradient of ``train_loss`` over every parameter leaf with
 ``torch.autograd.grad`` (through the kernels' autograd Functions on the
 card) and applies ``adamw.update``, which writes the parameters and moments
-in place. The expert-parallel MoE (``moe_group``) is ROADMAP queue 1,
-item 14.
+in place. ``moe_group`` > 0 routes each MoE block's tokens in groups of
+that many, as the reference's step passes it to ``moe_ffn(group_size=)``.
 """
 from __future__ import annotations
 
@@ -16,17 +16,13 @@ from repro_torch.optim import adamw
 
 
 def make_train_step(cfg, opt_cfg, *, moe_group: int = 0):
-    if moe_group:
-        raise NotImplementedError("the expert-parallel MoE (moe_group): "
-                                  "ROADMAP queue 1, item 14")
-
     def train_step(params, opt_state, batch):
         # leaves of the graph that share the parameters' storage, so the
         # caller's tensors never require a gradient
         live = T._tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = []
         T._tree_map(leaves.append, live)
-        loss, metrics = T.train_loss(live, cfg, batch)
+        loss, metrics = T.train_loss(live, cfg, batch, moe_group=moe_group)
         grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                          materialize_grads=True))
         del live, leaves

@@ -1,11 +1,13 @@
 """End-to-end training driver.
 
 PyTorch counterpart of ``repro/launch/train.py``: builds the model for
-``--arch`` (full or reduced config) on one device, and runs the resilient
-training loop (checkpoint every ``max(steps // 4, 5)`` steps, restart from
-the latest checkpoint after a failure). It runs on the card unless
+``--arch`` (full or reduced config), makes the host mesh
+(``make_host_mesh(model_parallel)``: ``model = min(model_parallel, ranks)``,
+so one process gets a (1, 1) mesh) and runs the resilient training loop
+under it (checkpoint every ``max(steps // 4, 5)`` steps, restart from the
+latest checkpoint after a failure). It runs on the card unless
 ``--device`` names another; on a machine without one use ``--device cpu
---reduced``. A mesh (``--model-parallel`` > 1) is ROADMAP queue 1, item 14.
+--reduced``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch phi3-mini-3.8b --reduced --steps 50 --batch 8 --seq 128
@@ -18,11 +20,14 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import ResilientLoop
@@ -43,13 +48,23 @@ def train(arch: str = "phi3-mini-3.8b", *, use_reduced: bool = True,
           compress_grads: bool = False, device=None):
     """``log_every`` is kept from the reference's signature, which does not
     read it either. ``device`` None means ``cuda``."""
-    if model_parallel > 1:
-        raise NotImplementedError("a model-parallel mesh: ROADMAP queue 1, "
-                                  "item 14")
     dev = resolve_device(device)
     cfg, opt_cfg = build(arch, use_reduced,
                          adamw.OptConfig(warmup_steps=10, total_steps=steps,
                                          compress_grads=compress_grads))
+    own_group = not dist.is_initialized()  # made here, so destroyed here
+    mesh = make_host_mesh(model_parallel, device=dev)
+    try:
+        with SH.use_mesh(mesh):
+            return _train(cfg, opt_cfg, dev, steps, batch, seq, ckpt_dir,
+                          seed, fail_at)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(cfg, opt_cfg, dev, steps, batch, seq, ckpt_dir, seed, fail_at):
+    """The loop under the mesh: init, step function, ``ResilientLoop``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(cfg, gen, device=dev)
     opt_state = adamw.init(opt_cfg, params)

@@ -36,8 +36,16 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain
 
 NEG_INF = -1e30
+
+
+def _constrain_qkv(*ts):
+    """Pin (B, S, H, hd) tensors to (dp, None, model, None), where the
+    reference does (there, against GSPMD replicating scan-invariant
+    attention operands inside the KV-block loop)."""
+    return tuple(constrain(t, "dp", None, "model", None) for t in ts)
 
 
 # --------------------------------------------------------------------- #
@@ -240,6 +248,7 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q, k, v = _constrain_qkv(q, k, v)
     if kv_source is not None:
         o = full_attention(q, k, v, causal=False)
         return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
@@ -339,6 +348,7 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     k = torch.cat([k_nope, k_rope.to(x.dtype)[:, :, None, :].expand(
         *k_nope.shape[:-1], dr)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
+    qq, k, vv = _constrain_qkv(qq, k, vv)
     if cache is not None and s == 1:
         o = decode_attention(qq, k, _pad_v(vv, dn + dr), t + 1)[..., :dv]
     else:

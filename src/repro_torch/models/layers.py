@@ -39,6 +39,8 @@ def dense_init(generator, shape, scale: float = 1.0, *, dtype=torch.bfloat16,
         fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale / np.sqrt(fan_in)
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
+    if out.is_meta:                  # shapes only: there is nothing to draw
+        return out
     tmp = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     for idx in np.ndindex(*lead):
         out[idx].copy_(_trunc_normal_(tmp, generator).mul_(std))

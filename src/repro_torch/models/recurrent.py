@@ -107,6 +107,8 @@ def rwkv6_chunked(r, k, v, w_log, u, state, chunk: int = 32):
     b, s, h, n = r.shape
     if s % chunk:
         raise ValueError((s, chunk))
+    if r.is_meta:
+        return _rwkv6_chunks_at_once(r, k, v, w_log, u, state, chunk)
     ii = torch.arange(chunk, device=r.device)
     lower = (ii[:, None] > ii[None, :])[None, :, :, None]      # (1,C,C,1)
     outs = []
@@ -138,6 +140,41 @@ def rwkv6_chunked(r, k, v, w_log, u, state, chunk: int = 32):
         state = torch.exp(la_end[:, 0])[..., None] * state + \
             torch.einsum("bchn,bchm->bhnm", k_dec, vv)
     return torch.cat(outs, dim=1), state
+
+
+def _rwkv6_chunks_at_once(r, k, v, w_log, u, state, chunk):
+    """``rwkv6_chunked`` on meta tensors (the dry run): no values, so no
+    recurrence to follow. The same products run over every chunk at once,
+    each chunk's incoming state standing in by the previous chunk's k.v
+    term, so ``FlopCounterMode`` counts the loop's matmuls (and their
+    backward) and the outputs have the loop's shapes and depend on every
+    input, without a Python step a chunk."""
+    b, s, h, n = r.shape
+    ii = torch.arange(chunk, device=r.device)
+    lower = (ii[:, None] > ii[None, :])[None, None, :, :, None]
+    rr, kk, vv, ww = (a.float().reshape(b, s // chunk, chunk, h, n)
+                      for a in (r, k, v, w_log))
+    la = torch.cumsum(ww, dim=2)
+    la_prev = la - ww
+    la_end = la[:, :, -1:]
+    k_dec = kk * torch.exp(la_end - la)
+    kv = torch.einsum("bcthn,bcthm->bchnm", k_dec, vv)
+    r_dec = rr * torch.exp(la_prev)
+    out = torch.cat([torch.einsum("bcthn,bhnm->bcthm", r_dec[:, :1],
+                                  state.float()),
+                     torch.einsum("bcthn,bchnm->bcthm", r_dec[:, 1:],
+                                  kv[:, :-1])], dim=1)
+    dmat = torch.exp(torch.where(lower[..., None],
+                                 la_prev[:, :, :, None] - la[:, :, None],
+                                 0.0))
+    att = torch.einsum("bcihn,bcjhn,bcijhn->bcijh", rr, kk, dmat)
+    att = torch.where(lower, att, 0.0)
+    out = out + torch.einsum("bcijh,bcjhn->bcihn", att, vv)
+    diag = torch.einsum("bcthn,bcthn->bcth", rr, kk * u[None, None, None])
+    out = out + diag[..., None] * vv
+    last_in = kv[:, -2] if kv.shape[1] > 1 else state.float()
+    final = torch.exp(la_end[:, -1, 0])[..., None] * last_in + kv[:, -1]
+    return out.reshape(b, s, h, n), final
 
 
 def rwkv6_step(r, k, v, w_log, u, state):
@@ -290,6 +327,11 @@ def rglru_scan(x, a_log, h0):
     ``unbind``, whose backward is one stack (indexing a step would write a
     zero tensor of the whole sequence for each step). Returns (h, h_last).
     """
+    if x.is_meta:       # the dry run: no values to recur over, the
+        # loop's shapes and inputs from elementwise ops, as the loop's are
+        hh = torch.exp(a_log) * h0[:, None] + torch.sqrt(torch.clamp(
+            1.0 - torch.exp(2.0 * a_log), min=1e-12)) * x
+        return hh, hh[:, -1]
     a = torch.exp(a_log).unbind(1)
     b_term = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log),
                                      min=1e-12)) * x).unbind(1)

@@ -16,8 +16,12 @@ and writes every cache in place. ``forward`` runs under
 (``_forward``) outside it, where gradients flow through the kernels'
 autograd Functions, and ``cfg.remat`` wraps each repeat's blocks (and each
 encoder layer) in ``torch.utils.checkpoint``, as the reference wraps its
-scan bodies in ``jax.checkpoint``. Sharding (``constrain``) and the
-expert-parallel MoE are ROADMAP queue 1, item 14.
+scan bodies in ``jax.checkpoint``. ``constrain`` sits where the
+reference's does (a no-op on the port's plain tensors), and a MoE block
+takes the expert-parallel route (``moe_ffn_ep_sharded``) under the
+reference's condition: ``moe_impl == "ep"`` and a ``use_mesh`` mesh in the
+``2d`` layout whose ``model`` axis is > 1 and divides S; else ``moe_ffn``
+with ``moe_group``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
+from repro_torch.models.sharding import (axis_size, constrain,
+                                         current_layout, current_mesh)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -217,7 +223,7 @@ def _store(cache, key, value):
 
 
 def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
-                t=None):
+                t=None, moe_group: int = 0):
     """One block. ``cache`` (the block's views into the stacked caches) is
     updated in place. A block with ``xattn`` attends over ``enc_out`` (and
     writes its K/V into the cache's ``xk``/``xv``), or, given a cache and
@@ -248,6 +254,7 @@ def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
             _store(cache, "h", ns["h"])
             _store(cache, "conv", ns["conv"])
     x = x + a
+    x = constrain(x, "dp", "model", None)
     if "xattn" in bp:                                      # cross-attention
         hx = L.norm(x, bp["norm_x"], cfg.norm)
         xp = bp["xattn"]
@@ -274,10 +281,17 @@ def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
         if cache is not None:
             _store(cache, "x_last_c", x_last_c)
     elif is_moe:
-        f, aux = M.moe_ffn(h2, bp["moe"], cfg)
+        mesh = current_mesh()
+        n_model = axis_size(mesh, "model") if mesh is not None else 1
+        use_ep = (cfg.moe_impl == "ep" and current_layout() == "2d"
+                  and n_model > 1 and h2.shape[1] % n_model == 0)
+        if use_ep:
+            f, aux = M.moe_ffn_ep_sharded(h2, bp["moe"], cfg, mesh)
+        else:
+            f, aux = M.moe_ffn(h2, bp["moe"], cfg, group_size=moe_group)
     else:
         f = L.mlp(h2, bp["mlp"], cfg.act)
-    return x + f, cache, aux
+    return constrain(x + f, "dp", "model", None), cache, aux
 
 
 # ===================================================================== #
@@ -357,7 +371,7 @@ def count_params(params) -> int:
 # forward
 # ===================================================================== #
 def _run_stages(params, cfg, x, positions, *, enc_out=None, caches=None,
-                t=None):
+                t=None, moe_group: int = 0):
     """Every stage's blocks in order. Returns (x, the blocks' summed aux
     loss)."""
     aux = torch.zeros((), device=x.device)
@@ -374,7 +388,8 @@ def _run_stages(params, cfg, x, positions, *, enc_out=None, caches=None,
                     sub = f"sub{ci}"
                     x, _, a = apply_block(
                         x, _lp[sub], cfg, sig, positions, enc_out=enc_out,
-                        cache=_cc[sub] if _cc is not None else None, t=t)
+                        cache=_cc[sub] if _cc is not None else None, t=t,
+                        moe_group=moe_group)
                     aux_r = aux_r + a
                 return x, aux_r
 
@@ -401,21 +416,22 @@ def encode(params, cfg, audio):
     path), the final norm."""
     enc = params["enc"]
     x = audio.to(_torch_dtype(cfg.dtype)) + enc["pos_embed"][None]
+    x = constrain(x, "dp", None, None)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     def body(x, bp):
         h = L.norm(x, bp["norm1"], cfg.norm)
         a, _ = A.gqa_forward(h, bp["attn"], cfg, pos, causal=False)
         x = x + a
-        return x + L.mlp(L.norm(x, bp["norm2"], cfg.norm), bp["mlp"],
-                         cfg.act)
+        x = x + L.mlp(L.norm(x, bp["norm2"], cfg.norm), bp["mlp"], cfg.act)
+        return constrain(x, "dp", None, None)
 
     for bp in _unstack(enc["stage0"]["sub0"], cfg.encoder_layers):
         x = _remat(cfg, body, x, bp)
     return L.norm(x, enc["final_norm"], cfg.norm)
 
 
-def _forward(params, cfg, batch, *, caches=None, t=None,
+def _forward(params, cfg, batch, *, caches=None, t=None, moe_group=0,
              return_hidden=False):
     """``forward``'s body, outside ``inference_mode`` (``train_loss``)."""
     tokens = batch["tokens"]
@@ -429,24 +445,28 @@ def _forward(params, cfg, batch, *, caches=None, t=None,
     if cfg.is_encoder_decoder and "audio" in batch:
         enc_out = encode(params, cfg, batch["audio"])
     x = _embed(params, cfg, tokens, positions, batch.get("patches"))
+    x = constrain(x, "dp", "model", None)
     x, aux = _run_stages(params, cfg, x, positions, enc_out=enc_out,
-                         caches=caches, t=t)
+                         caches=caches, t=t, moe_group=moe_group)
     h_final = L.norm(x, params["final_norm"], cfg.norm)
-    logits = h_final @ params["lm_head"]
+    logits = constrain(h_final @ params["lm_head"], "dp", None, "model")
     if return_hidden:
         return logits, caches, aux, h_final
     return logits, caches, aux
 
 
 @torch.inference_mode()
-def forward(params, cfg, batch, *, caches=None, t=None, return_hidden=False):
+def forward(params, cfg, batch, *, caches=None, t=None, moe_group: int = 0,
+            return_hidden=False):
     """batch: tokens (B,S) [+ patches (B,P,D) | audio (B,Se,D) |
     positions]. Returns (logits, caches, aux[, hidden]).
 
     ``caches`` are updated in place and returned; ``aux`` is the MoE
-    blocks' summed load-balance loss (0 without MoE), as the reference's."""
+    blocks' summed load-balance loss (0 without MoE), as the reference's.
+    ``moe_group`` > 0 routes a MoE block's tokens in groups of that many
+    (``moe_ffn(group_size=)``)."""
     return _forward(params, cfg, batch, caches=caches, t=t,
-                    return_hidden=return_hidden)
+                    moe_group=moe_group, return_hidden=return_hidden)
 
 
 # ===================================================================== #
@@ -486,14 +506,15 @@ def _mtp_loss(params, cfg, h_final, tokens, labels, mask):
     return softmax_xent(logits, lab2, m2, cfg.xent_impl)
 
 
-def train_loss(params, cfg, batch):
+def train_loss(params, cfg, batch, *, moe_group: int = 0):
     """batch: tokens (B,S), labels (B,S) (-1 = masked), + frontend stubs.
     Returns (loss, metrics) as the reference's. Called with autograd on,
     the loss carries the graph to every parameter leaf that requires a
     gradient (``repro_torch.launch.steps.make_train_step``)."""
     labels = batch["labels"]
     mask = (labels >= 0).float()
-    logits, _, aux, h = _forward(params, cfg, batch, return_hidden=True)
+    logits, _, aux, h = _forward(params, cfg, batch, moe_group=moe_group,
+                                 return_hidden=True)
     loss = softmax_xent(logits, labels, mask, cfg.xent_impl)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp:

@@ -18,6 +18,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import store
 from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.models import sharding as SH
 from repro_torch.optim import adamw as TA
 from repro_torch.runtime.fault_tolerance import (HostFailure, ResilientLoop,
                                                  StragglerBalancer,
@@ -96,8 +97,9 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
 
 def test_restore_puts_each_leaf_on_the_template(tmp_path):
     """The template's dtype wins (an f32 array restores into bf16 and
-    int32); numpy leaves and sequences restore as the reference's do; a
-    mesh (``shardings=``) and a missing checkpoint raise."""
+    int32); numpy leaves and sequences restore as the reference's do;
+    ``shardings=`` that replicate every leaf leave plain tensors; a missing
+    checkpoint raises."""
     tree = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),
             "l": [np.ones(2, np.float32), torch.tensor(3, dtype=torch.int32)]}
     store.save(str(tmp_path), 1, tree)
@@ -108,8 +110,13 @@ def test_restore_puts_each_leaf_on_the_template(tmp_path):
     assert got["a"].dtype == torch.bfloat16 and got["a"].shape == (2, 3)
     assert isinstance(got["l"], list) and got["l"][0].dtype == np.float64
     assert got["l"][1].dtype == torch.int64 and int(got["l"][1]) == 3
-    with pytest.raises(NotImplementedError, match="item 14"):
-        store.restore(str(tmp_path), template, shardings=object())
+    mesh = SH.ShapeMesh(("data", "model"), (1, 1))
+    repl = {"a": SH.NamedSharding(mesh, SH.spec(None, None)),
+            "l": [SH.NamedSharding(mesh, SH.spec(None)),
+                  SH.NamedSharding(mesh, SH.spec())]}
+    got2, _ = store.restore(str(tmp_path), template, shardings=repl)
+    assert type(got2["a"]) is torch.Tensor and torch.equal(got2["a"],
+                                                           got["a"])
     with pytest.raises(FileNotFoundError):
         store.restore(str(tmp_path / "none"), template)
     assert store.latest_step(str(tmp_path / "none")) is None
@@ -217,3 +224,68 @@ def test_adamw_state_checkpoints_through_the_loop_template(tmp_path):
     for a, b in ((params["w"], p2["w"]), (st["mu"]["w"], s2["mu"]["w"]),
                  (st["err"]["w"], s2["err"]["w"])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _restore_rank(rank, world, store_path, ckpt_dir, out_dir):
+    """One gloo rank: restore the params onto a (1, 2) mesh by
+    ``param_shardings`` and save this rank's local shards."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import transformer as T
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        cfg = reduced(tconfigs.get_config("deepseek-v2-236b"))
+        template = T.init_params(cfg, torch.Generator().manual_seed(1),
+                                 device="cpu")
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        sh = SH.param_shardings(template, mesh)
+        got, _ = store.restore(ckpt_dir, template, shardings=sh)
+        local, specs = {}, {}
+        for (path, leaf), (_, s) in zip(store._items(got), store._items(sh)):
+            key = "/".join(path)
+            local[key] = (leaf.to_local() if isinstance(leaf, DTensor)
+                          else leaf).float().numpy()
+            specs[key] = s.spec
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **local)
+        if rank == 0:
+            with open(os.path.join(out_dir, "specs.txt"), "w") as f:
+                f.write(repr(specs))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_onto_a_two_rank_mesh_gives_each_rank_its_shard(tmp_path):
+    """The reduced deepseek-v2 params saved, then restored on 2 gloo ranks
+    with ``shardings=`` from ``param_shardings`` on a (1, 2) mesh: a leaf
+    whose spec names 'model' comes back as each rank's ``Shard`` of it, bit
+    for bit; every other leaf whole."""
+    import ast
+
+    from repro_torch.models import transformer as T
+    cfg = reduced(tconfigs.get_config("deepseek-v2-236b"))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    store.save(str(tmp_path / "ckpt"), 1, params)
+    torch.multiprocessing.start_processes(
+        _restore_rank, args=(2, str(tmp_path / "store"),
+                             str(tmp_path / "ckpt"), str(tmp_path)),
+        nprocs=2, start_method="spawn")
+    specs = ast.literal_eval((tmp_path / "specs.txt").read_text())
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    n_sharded = 0
+    for path, leaf in store._items(params):
+        key = "/".join(path)
+        full = leaf.float().numpy()
+        dims = [i for i, e in enumerate(specs[key]) if e == "model"]
+        if not dims:
+            for r in ranks:
+                np.testing.assert_array_equal(r[key], full)
+            continue
+        n_sharded += 1
+        for i, part in enumerate(np.split(full, 2, axis=dims[0])):
+            np.testing.assert_array_equal(ranks[i][key], part)
+    assert n_sharded >= 10

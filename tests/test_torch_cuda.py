@@ -636,3 +636,43 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
     for a, b in zip(flat_a, flat_b):
         assert b.device == a.device and b.dtype == a.dtype
         assert torch.equal(a, b)
+
+
+def test_ep_at_world_size_one_on_nccl_equals_moe_ffn(cuda):
+    """EP over a one-rank NCCL group (``make_host_mesh(1)``) on reduced
+    deepseek-v2 in f32, at a capacity factor that drops no pair: it is
+    ``moe_ffn``. The group is destroyed after."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda, dtype=torch.float32)
+    p = params["stage1"]["sub0"]["moe"]
+    p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()})
+         for k, v in p.items()}
+    x = torch.randn(2, 32, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.shape == (1, 1)
+        with torch.inference_mode():
+            want, want_aux = M.moe_ffn(x, p, cfg)
+            for route in ("ep", "ep_sharded"):
+                if route == "ep":
+                    out, aux = M.moe_ffn_ep(x, p, cfg,
+                                            group=mesh.get_group("model"))
+                else:
+                    out, aux = M.moe_ffn_ep_sharded(x, p, cfg, mesh)
+                torch.testing.assert_close(out, want, **TOL[torch.float32])
+                torch.testing.assert_close(aux, want_aux,
+                                           **TOL[torch.float32])
+    finally:
+        if own:
+            dist.destroy_process_group()

@@ -23,6 +23,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import steps as S
 from repro_torch.launch import train as TR
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as TA
 
@@ -94,8 +95,7 @@ def test_train_step_leaves_the_callers_params_without_grad():
     assert not torch.equal(params["lm_head"], before)   # updated in place
     assert set(m) == {"loss", "ce", "aux", "grad_norm", "lr"}
     assert all(v.grad_fn is None for v in m.values())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        S.make_train_step(cfg, opt, moe_group=2)
+    assert callable(S.make_train_step(cfg, opt, moe_group=2))
 
 
 def test_train_loop_end_to_end(tmp_path):
@@ -127,12 +127,16 @@ def test_train_loop_end_to_end(tmp_path):
 
 
 def test_train_runs_on_the_card_unless_told_and_has_no_mesh(tmp_path):
+    """No card: ``train`` raises unless told the CPU. It makes its host
+    mesh over a process group it creates, and leaves no mesh or group
+    behind."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TR.train("stablelm-3b", steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TR.train("stablelm-3b", steps=1, model_parallel=2, device="cpu",
-                 ckpt_dir=str(tmp_path))
+    TR.train("stablelm-3b", steps=1, batch=2, seq=16, model_parallel=2,
+             device="cpu", ckpt_dir=str(tmp_path))
+    assert not torch.distributed.is_initialized()
+    assert SH.current_mesh() is None
     cfg, opt = TR.build("phi3-mini-3.8b", True)
     assert cfg == reduced(tconfigs.get_config("phi3-mini-3.8b"))
     assert opt == TA.OptConfig()
@@ -168,3 +172,59 @@ def test_serve_and_prefill_steps_wrap_the_model():
     want, _, _ = T.forward(params, cfg, {"tokens": torch.cat(
         [tokens, nxt[:, None]], 1)})
     torch.testing.assert_close(step, want[:, -1], atol=1e-4, rtol=1e-4)
+
+
+def test_grouped_moe_train_step_matches_reference():
+    """``make_train_step(moe_group=16)`` on reduced deepseek-v2 (64 tokens
+    routed in 4 groups of 16, each with its own capacity) against the
+    reference's jitted step: loss, grad norm and every leaf after one
+    step, at the tolerances of the three-step test."""
+    arch = "deepseek-v2-236b"
+    cfg, tcfg = reduced(get_config(arch)), reduced(tconfigs.get_config(arch))
+    jp = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
+    kw = dict(warmup_steps=2, total_steps=10)
+    jc, tc = JA.OptConfig(**kw), TA.OptConfig(**kw)
+    js, ts = JA.init(jc, jp), TA.init(tc, tp)
+    raw = SyntheticLoader(cfg, 2, 32, seed=0).load(0)
+    before = _flat(jp)
+    jp, js, jm = jax.jit(ref_train_step(cfg, jc, moe_group=16))(
+        jp, js, {k: jnp.asarray(v) for k, v in raw.items()})
+    tp, ts, tm = S.make_train_step(tcfg, tc, moe_group=16)(
+        tp, ts, {k: torch.from_numpy(v) for k, v in raw.items()})
+    for key in ("loss", "grad_norm", "aux"):
+        want = float(jm[key])
+        assert abs(float(tm[key]) - want) <= 1e-5 * abs(want), key
+    with torch.no_grad():              # the groups' capacities matter
+        _, ungrouped = T.train_loss(
+            params_from_jax(_unflat(before), device="cpu"), tcfg,
+            {k: torch.from_numpy(v) for k, v in raw.items()})
+    assert float(ungrouped["aux"]) != pytest.approx(float(tm["aux"]),
+                                                    rel=1e-3)
+    want, got = _flat(jp), _flat(tp)
+    for key in want:
+        step = np.linalg.norm(want[key] - before[key])
+        assert np.linalg.norm(got[key] - want[key]) <= 0.05 * step, key
+
+
+def _unflat(flat):
+    out = {}
+    for key, v in flat.items():
+        node = out
+        *parents, leaf = key.strip("/").split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def test_model_parallel_train_on_one_rank_equals_one(tmp_path):
+    """On one CPU rank ``make_host_mesh(2)`` is the (1, 1) mesh, as the
+    reference's is on one device: the same losses and weights."""
+    runs = [TR.train("stablelm-3b", steps=3, batch=2, seq=16,
+                     model_parallel=mp, device="cpu",
+                     ckpt_dir=str(tmp_path / f"mp{mp}")) for mp in (1, 2)]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    a, b = _flat(runs[0]["params"]), _flat(runs[1]["params"])
+    assert all(np.array_equal(a[k], b[k]) for k in a)
