@@ -95,10 +95,19 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      its full-width forward over 1 x 16384 tokens under ``use_mesh`` with
      ``moe_group=8192`` and with 0 (drops counted), and over 1 x 4096 with
      ``moe_group=2048`` and with 0 at a capacity factor that drops no pair
-     (asserted; logits within bf16's 2e-2), K3 <192> once a layer in each;
-     ``moe_ffn_ep`` and ``moe_ffn_ep_sharded`` (NCCL all-to-all, bf16 and
-     int8) at DeepSeek-V2's MoE on 2048 tokens against ``moe_ffn``, timed;
-     the params saved and restored with ``param_shardings``, bit for bit;
+     (asserted; the first MoE layer within bf16's 2e-2), the ungrouped one
+     run twice to equal logits (``torch.equal``: the MoE combine has no
+     atomics), K3 <192> once a layer in each; ``moe_ffn_ep`` and
+     ``moe_ffn_ep_sharded`` (NCCL all-to-all, bf16 and int8) at
+     DeepSeek-V2's MoE on 2048 tokens against ``moe_ffn``, timed; the
+     gradients of x and every weight through ``moe_ffn_ep`` against
+     autograd through ``moe_ffn``, each leaf within bf16's 2e-2, int8
+     under autograd refused, forward plus backward timed; the params saved
+     and restored with ``param_shardings``, bit for bit;
+  7. (run after 6) the three examples of ``repro_torch.examples``
+     (quickstart, multi_tenant_serving, fault_tolerant_training) on the
+     card in this process, counted the same way, each under the profiler
+     with its lines logged and its K1, K3 and K4 launches asserted exactly;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan are the scheduler's model predictions, labelled
@@ -228,6 +237,33 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls that the host queued
+    behind a spin kernel, for a kernel whose host work a call is of its own
+    order: the card reaches the first call only once the last is queued, so
+    no host gap between calls enters the time. The spin is lengthened until
+    the start event is still pending when the last call has been queued."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError(f"the host did not queue {reps} calls within a spin "
+                         f"of {cycles // 4} cycles")
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -936,6 +972,9 @@ RESTORE_DEPTH = 2
 # two projections (wi, wg) both see it. Two steps a trip (a CPU rehearsal
 # at the reduced width came to 1.96 steps), and as much of the norm
 INT8_STEPS = 4
+# moe_ffn at EP_TOKENS with the index_add_ combine that the fixed-order one
+# replaced (phase 6 on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6)
+EARLIER_MOE_FFN_MS = 7.123
 
 
 def _drop_counter(torch, M, seen):
@@ -956,6 +995,80 @@ def _drop_counter(torch, M, seen):
         seen["groups"].append((int(x2d.shape[0]), cap))
         return real(x2d, p, cfg)
     return real, counted
+
+
+def ep_backward(torch, M, T, x, p, cfg, group, card) -> None:
+    """Phase 6's EP backward at world size 1: the gradients of x, the
+    router, the experts and the shared expert through ``moe_ffn_ep`` (the
+    NCCL all-to-all's autograd Function) against autograd through
+    ``moe_ffn``, on the same rows and weights, each leaf held to
+    GROUPED_TOL of its largest value and of its norm and freed after, and
+    ``moe_ffn_ep``'s run again repeats bit for bit; the int8 exchange
+    under autograd raises (fault 14). Forward plus backward timed for
+    both routes, with the peak memory."""
+    import dataclasses
+    m = cfg.moe
+    ct = torch.randn(x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(7), device=x.device).to(x.dtype)
+    routes = {"moe_ffn": lambda xx, pp: M.moe_ffn(xx, pp, cfg),
+              "moe_ffn_ep": lambda xx, pp: M.moe_ffn_ep(xx, pp, cfg,
+                                                        group=group)}
+
+    def grads(route):
+        xx = x.detach().requires_grad_()
+        pp = T._tree_map(lambda w: w.detach().requires_grad_(), p)
+        out, aux = routes[route](xx, pp)
+        loss = (out.float() * ct.float()).sum() + 3.0 * aux
+        named = [("x", xx)] + [(k[1:], v) for k, v in named_leaves(pp)]
+        return dict(zip([k for k, _ in named], torch.autograd.grad(
+            loss, [v for _, v in named])))
+
+    timed, peak = {}, {}
+    for route in routes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed[route] = time_ms(torch, lambda r=route: grads(r), 3)
+        peak[route] = torch.cuda.max_memory_allocated() / 2**30
+    want, got = grads("moe_ffn"), grads("moe_ffn_ep")
+    assert set(got) == set(want) == {
+        "x", "router", "wi", "wg", "wo", "shared/wi", "shared/wg",
+        "shared/wo"}, sorted(got)
+    # ranks that train together stay in step only if a backward repeats
+    again = grads("moe_ffn_ep")
+    for name in list(again):
+        assert torch.equal(again.pop(name), got[name]), name
+    errs = {}
+    for name in list(want):
+        w, g = want.pop(name).float(), got.pop(name).float()
+        assert bool(torch.isfinite(g).all()), name
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        rel = float((g - w).norm() / w.norm())
+        assert scale > 0 and err <= GROUPED_TOL * scale, (name, err, scale)
+        assert rel <= GROUPED_TOL, (name, rel)
+        errs[name] = (err / scale, rel)
+        del w, g
+    int8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, a2a_dtype="int8"))
+    try:
+        M.moe_ffn_ep(x.detach().requires_grad_(), p, int8, group=group)
+        raise AssertionError("int8 EP under autograd did not raise")
+    except NotImplementedError as e:
+        assert "fault 14" in str(e), e
+    log(f"[mesh ep backward] moe_ffn_ep under autograd at world size 1 "
+        f"(NCCL all_to_all_single both ways), E {m.num_experts} top-"
+        f"{m.top_k} D {cfg.d_model} F {m.d_ff_expert} "
+        f"{m.num_shared_experts} shared, {x.shape[1]} tokens, capacity "
+        f"factor {m.capacity_factor}, loss sum(out * ct) + 3 aux: against "
+        f"autograd through moe_ffn, per leaf (max abs err / max |grad|, "
+        f"error norm / norm; bound {GROUPED_TOL} each) "
+        + ", ".join(f"{k} {a:.2e}/{r:.2e}" for k, (a, r) in errs.items())
+        + f"; run again, every leaf torch.equal (asserted); int8 under "
+        f"autograd raises (fault 14); forward + backward "
+        f"{timed['moe_ffn_ep']:.3f} ms (moe_ffn {timed['moe_ffn']:.3f} ms), "
+        f"peak memory {peak['moe_ffn_ep']:.2f} GiB (moe_ffn "
+        f"{peak['moe_ffn']:.2f} GiB), the phase's weights included; CUDA "
+        f"events ({card})")
 
 
 def mesh_phase(torch, dev, card) -> dict:
@@ -1096,15 +1209,18 @@ def mesh_phase(torch, dev, card) -> dict:
         rel = {k: float((logits[k].float() - logits[0].float()).norm()
                         / logits[0].float().norm())
                for k in (EQUAL_GROUP, -1)}
+        # the combine sums each token's k rows in a fixed order (fault 13)
+        assert torch.equal(logits[-1], logits[0]), rel[-1]
         log(f"[mesh grouped] moe_group={EQUAL_GROUP} against 0 at 1 x "
             f"{EQUAL_PROMPT}, no pair dropped: the first MoE layer's output "
             f"on its input in the forward, max abs diff {moe_diff:.4f} of "
             f"max |out| {scale:.2f} (bound {GROUPED_TOL} of it), error norm "
             f"{moe_rel:.2e} of its norm (bound {GROUPED_TOL}); the logits' "
-            f"error norm {rel[EQUAL_GROUP]:.4f} of theirs, and the same "
-            f"ungrouped forward run twice {rel[-1]:.4f} (bf16 index_add_ "
-            f"sums in no fixed order on the card, and 4 random layers "
-            f"amplify an ulp: not asserted); profiled at 1 x {MESH_PROMPT}, "
+            f"error norm {rel[EQUAL_GROUP]:.4f} of theirs (the buckets' "
+            f"bf16 GEMM shapes differ: not asserted), and the same "
+            f"ungrouped forward run twice {rel[-1]:.4f}: torch.equal "
+            f"(asserted; the combine has no atomics); profiled at 1 x "
+            f"{MESH_PROMPT}, "
             f"moe_group={MESH_GROUP}: device time {total:.3f} ms, "
             f"flash_fwd_wgmma_kernel<192> x{n_k3} {k3_ms:.3f} ms ({card})")
         del logits, moe_in, x_moe, got, want
@@ -1167,6 +1283,14 @@ def mesh_phase(torch, dev, card) -> dict:
                         f" MiB a layer; {ms:.3f} ms against moe_ffn "
                         f"{timed['moe_ffn']:.3f} ms (CUDA events; {card})")
 
+        log(f"[mesh moe_ffn] {cfg.name}'s MoE layer on {EP_TOKENS} tokens "
+            f"at capacity factor {EP_CF}: {timed['moe_ffn']:.3f} ms with the "
+            f"fixed-order combine, against {EARLIER_MOE_FFN_MS} ms with the "
+            f"index_add_ combine it replaced (NVIDIA H100 80GB HBM3, 700.00 "
+            f"W); CUDA events ({card}); no gain is claimed")
+        ep_backward(torch, M, T, x, p, cfg_ep, group_model, card)
+        del x, p, want, out
+
         # sharded restore, of the params cut to RESTORE_DEPTH layers (views)
         n_moe = RESTORE_DEPTH - m.first_dense_layers
         cut = dict(params, stage1=T._tree_map(lambda a: a[:n_moe],
@@ -1199,6 +1323,109 @@ def mesh_phase(torch, dev, card) -> dict:
         return launches
     finally:
         dist.destroy_process_group()
+
+
+def examples_phase(torch, card) -> dict:
+    """Phase 7: the port's three examples (``repro_torch.examples``) on the
+    card, in this process, in a fresh working directory (their checkpoints
+    and stores land there), each under the profiler with its printed lines
+    logged, and its kernels counted exactly from the code: quickstart's
+    256 x 256 f32 sliced matmul at slice size 2 is 4 tiles in 2 launches
+    of K1's f32 kernel, and its 10 training steps of reduced phi3-mini run
+    K3 once an attn layer a step (remat off; the backward is plain);
+    multi_tenant_serving's demo runs K3 once an attn layer per prefill run
+    of its phi3-mini tenant and K4's two passes once an rwkv6 layer per
+    prefill run of its rwkv6 tenant (decode runs neither);
+    fault_tolerant_training runs K3 once an attn layer per step it runs,
+    its reruns after each restart included. Quickstart's own measured
+    error of K1 against ``ref.matmul`` is held to F32_TOL's atol (phase
+    2b holds K1 at its shape too, and phase 2a K3 at D = 32). Returns the
+    launches."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.examples import fault_tolerant_training as FT
+    from repro_torch.examples import multi_tenant_serving as MTS
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import DEMO_JOBS
+
+    def attn(arch):
+        cfg = reduced(get_config(arch))
+        assert not cfg.remat, arch
+        return (cfg.layer_kinds().count("attn"),
+                f"flash_fwd_wgmma_kernel<{cfg.head_dim}>")
+    n_phi3, k3_phi3 = attn("phi3-mini-3.8b")
+    n_slm, k3_slm = attn("stablelm-3b")
+    n_wkv = reduced(get_config("rwkv6-1.6b")).layer_kinds().count("rwkv6")
+    k1_f32 = "sliced_matmul_kernel"
+    tenant = {arch: name for name, arch, _, _ in DEMO_JOBS}
+
+    def want_quickstart(res):
+        return {k1_f32: 2, "sliced_matmul_wgmma_kernel": 0,
+                k3_phi3: res["steps"] * n_phi3}
+
+    def want_serving(res):
+        runs = {arch: prefill_runs(res["rounds"], tenant[arch])
+                for arch in ("phi3-mini-3.8b", "rwkv6-1.6b")}
+        return {k3_phi3: n_phi3 * runs["phi3-mini-3.8b"],
+                "flash_fwd": n_phi3 * runs["phi3-mini-3.8b"],
+                **{k: n_wkv * runs["rwkv6-1.6b"] for k in K4_KERNELS}}
+
+    def want_ft(res):
+        assert res["res"]["steps"] == 16
+        return {k3_slm: len(res["res"]["losses"]) * n_slm}
+
+    launches = dict.fromkeys(_build.NAMES, 0)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, fn, want in (
+                    ("quickstart", lambda: QS.main([]), want_quickstart),
+                    ("multi_tenant_serving", lambda: MTS.main([]),
+                     want_serving),
+                    ("fault_tolerant_training", lambda: FT.main([]),
+                     want_ft)):
+                run = {}
+
+                def go(fn=fn, run=run):
+                    buf = io.StringIO()
+                    ops.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    with contextlib.redirect_stdout(buf):
+                        run["res"] = fn()
+                    torch.cuda.synchronize()
+                    run["wall"] = time.time() - t0
+                    run["lines"] = buf.getvalue().splitlines()
+                    run["launches"] = dict(ops.LAUNCHES)
+
+                evs = kernel_events(torch, go, lambda evs, want=want, run=run:
+                                    all(n_launches(evs, k) == v for k, v in
+                                        want(run["res"]).items()))
+                for line in run["lines"]:
+                    log(f"[examples {name}] {line}")
+                counts = want(run["res"])
+                seen = {k: n_launches(evs, k) for k in counts}
+                assert seen == counts, (name, seen, counts,
+                                        [e.key for e in evs])
+                if name == "quickstart":    # K1 against ref.matmul
+                    assert run["res"]["err"] <= F32_TOL["atol"], run["res"]
+                for k in _build.NAMES:
+                    launches[k] += run["launches"][k]
+                log(f"[examples] python -m repro_torch.examples.{name} in "
+                    f"this process: {run['wall']:.2f} s on the host clock "
+                    f"under the profiler; kernels {seen} (asserted from "
+                    f"the code); ops launches "
+                    f"{ {k: v for k, v in run['launches'].items() if v} } "
+                    f"({card})")
+        finally:
+            os.chdir(cwd)
+    assert launches["sliced_matmul"] == 2, launches
+    return launches
 
 
 def main() -> int:
@@ -1277,7 +1504,8 @@ def main() -> int:
                                  (2, 1, 256, 160, False),
                                  (1, 2, 100, 48, True), (2, 1, 256, 48, False),
                                  (1, 2, 100, 192, True),
-                                 (2, 1, 256, 192, False)]:
+                                 (2, 1, 256, 192, False),
+                                 (4, 4, 64, 32, True)]:    # phase 7's training
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             q, k, v = (randn((b, h, s, d), dt) for _ in range(3))
             err = max_err(torch, ops.flash_attention(q, k, v, causal=causal),
@@ -1404,7 +1632,8 @@ def main() -> int:
 
     # ---- phase 2b: K1 sliced_matmul -------------------------------------
     for (m, kk, n, ss) in [(256, 128, 256, 1), (128, 256, 384, 3),
-                           (384, 128, 128, 4)]:
+                           (384, 128, 128, 4),
+                           (256, 256, 256, 2)]:     # phase 7's quickstart
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             a, bm = randn((m, kk), dt), randn((kk, n), dt)
             err = max_err(torch, ops.sliced_matmul(a, bm, slice_size=ss),
@@ -1766,19 +1995,10 @@ def main() -> int:
                        K5_TOL)
     del got
 
-    def k5_device_ms(x, a_log, reps=20):
-        # a call's host work (checks, two tensor maps) is of the kernel's
-        # order, so back-to-back events would time the host: the profiler's
-        # device time of the kernel instead
-        evs = [e for e in kernel_events(torch, lambda: [
-            ops.rg_lru(x, a_log, h0=zeros) for _ in range(reps)],
-            lambda evs: n_launches(evs, K5_KERNEL) == reps)
-            if K5_KERNEL in e.key]
-        assert sum(e.count for e in evs) == reps, [e.key for e in evs]
-        return sum(e.self_device_time_total for e in evs) / (reps * 1e3)
-
-    ms = k5_device_ms(xs, als)
-    ms_bf16 = k5_device_ms(xb, ab)
+    # a call's host work (checks, two tensor maps) is of the kernel's order,
+    # so back-to-back events would time the host: time calls queued ahead
+    ms = queued_ms(torch, lambda: ops.rg_lru(xs, als, h0=zeros), 20)
+    ms_bf16 = queued_ms(torch, lambda: ops.rg_lru(xb, ab, h0=zeros), 20)
     event_ms = time_ms(torch, lambda: ops.rg_lru(xs, als, h0=zeros), 20)
     plain = time_ms(torch, lambda: R.rglru_scan(xs, als, zeros), 3)
     nbytes = lru_bytes(*shape, 4)
@@ -1792,8 +2012,9 @@ def main() -> int:
     log(f"[K5] {shape} f32: err {max(k5_errs):.3e} (tol atol=rtol=1e-4, "
         f"against the plain scan and the oracle, from zero and from h0); "
         f"bf16 x/a_log err {bf16_err:.3e} against the oracle on the same "
-        f"values in f32; kernel {ms:.4f} ms device time (profiler, mean of "
-        f"20; before this design {EARLIER_MS['rg_lru']}), {event_ms:.4f} ms "
+        f"values in f32; kernel {ms:.4f} ms device time (CUDA events, mean "
+        f"of 20 calls queued behind a spin kernel; before this design "
+        f"{EARLIER_MS['rg_lru']}), {event_ms:.4f} ms "
         f"a call back to back (CUDA events, the host's work included); moves "
         f"{nbytes / 1e6:.1f} MB (the kernel it replaced "
         f"{lru_bytes(*shape, 4, reads=2) / 1e6:.1f} MB), "
@@ -2256,9 +2477,14 @@ def main() -> int:
     mesh_launches = mesh_phase(torch, dev, card)
     log(f"[main path] mesh launches {mesh_launches}")
 
+    # ---- phase 7: the examples, counted ------------------------------------
+    ex_launches = examples_phase(torch, card)
+    log(f"[main path] examples launches {ex_launches}")
+
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
                 + ds_launches[name] + mm_launches[name] + train_launches[name]
-                + mesh_launches[name] for name in _build.NAMES}
+                + mesh_launches[name] + ex_launches[name]
+                for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
 

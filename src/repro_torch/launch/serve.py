@@ -446,7 +446,8 @@ DEMO_JOBS = (("tenantA-phi3-prefill", "phi3-mini-3.8b", "prefill", 24),
 
 
 def demo(device=None):
-    """The reference's four demo tenants, reduced, on the H100 model."""
+    """The reference's four demo tenants, reduced, on the H100 model.
+    Returns the drain's result."""
     dev = resolve_device(device)
     server = SharedPodServer(gpu_spec=card_spec(dev),
                              profile_fn=h100_profile_from_costs, device=dev)
@@ -466,6 +467,7 @@ def demo(device=None):
               f"H100-model predicted CP={cp:+.3f}")
     print(f"drained in {res['wall_s']:.1f}s; mean H100-model predicted "
           f"co-scheduling profit {res['predicted_gain']:+.1%}")
+    return res
 
 
 if __name__ == "__main__":

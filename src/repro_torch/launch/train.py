@@ -9,6 +9,13 @@ latest checkpoint after a failure). It runs on the card unless
 ``--device`` names another; on a machine without one use ``--device cpu
 --reduced``.
 
+On N ranks (a default process group made by the caller) every rank runs
+the whole batch on the replicated model; a MoE block takes the
+expert-parallel route over the mesh, whose backward sums each rank's part
+of the gradient, so the ranks' parameters stay bit for bit the same with
+no reduction in the step. Only rank 0 writes checkpoints
+(``ResilientLoop``).
+
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch phi3-mini-3.8b --reduced --steps 50 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\

@@ -14,8 +14,9 @@ functions for the tests, and the sliding-window ``local`` blocks of
 einsums; MLA's default decode (``mla_decode="absorbed"``) attends in the
 latent space. Whisper's encoder (non-causal, no cache) takes K3's full
 path; its decoder's cross-attention runs the plain ``full_attention``, as
-the reference's does. A window inside an ``attn`` block waits for ROADMAP
-queue 1, item 18.
+the reference's does. A window inside an ``attn`` block
+(``attention_kind="local"``) takes the reference's plain routes with the
+window, never K3, which has none (ROADMAP queue 1, item 18).
 
 Caches are updated in place: a decode step writes its token's k/v into the
 cache it was given and returns the same tensors, where the functional
@@ -186,16 +187,18 @@ def _flash(q, k, v, *, causal: bool):
     return _flash_fwd(q, k, v, causal=causal)
 
 
-def plain_attention(q, k, v, *, causal: bool):
+def plain_attention(q, k, v, *, causal: bool, window: int = 0):
     """The attention the reference trains through, as ``gqa_forward``
     picks it with no cache: ``full_attention`` up to two blocks, else
-    ``chunked_attention`` (so no S x S f32 matrix is held at S = 4096)."""
+    ``chunked_attention`` (so no S x S f32 matrix is held at S = 4096).
+    It is also the route of a window inside an ``attn`` block with no
+    cache: K3 has no window (ROADMAP item 18)."""
     s = q.shape[1]
     blk = _pick_block(s, k.shape[1])
     if s <= 2 * blk:
-        return full_attention(q, k, v, causal=causal)
-    return chunked_attention(q, k, v, causal=causal, q_block=blk,
-                             kv_block=blk)
+        return full_attention(q, k, v, causal=causal, window=window)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_block=blk, kv_block=blk)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -240,10 +243,8 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     decoder): k/v are projected from it, no positions apply, and it attends
     with the plain ``full_attention``, as the reference does (K3 takes q,
     k and v of one length). Returns (out, cache)."""
-    if cfg.attention_kind == "local":
-        raise NotImplementedError("a window in an attn block: ROADMAP queue "
-                                  "1, item 18")
     b, s, d = x.shape
+    window = cfg.local_window if cfg.attention_kind == "local" else 0
     src = x if kv_source is None else kv_source
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
@@ -260,9 +261,14 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
         cache["k"][:, t:t + s] = k.to(cache["k"].dtype)
         cache["v"][:, t:t + s] = v.to(cache["v"].dtype)
         if s == 1:  # decode: one token at position t
-            o = decode_attention(q, cache["k"], cache["v"], t + 1)
+            o = decode_attention(q, cache["k"], cache["v"], t + 1,
+                                 window=window)
+        elif window:  # prompt into the cache, the reference's plain route
+            o = chunked_attention(q, k, v, causal=causal, window=window)
         else:       # prompt into the cache
             o = _flash(q, k, v, causal=causal)
+    elif window:
+        o = plain_attention(q, k, v, causal=causal, window=window)
     else:
         o = _flash(q, k, v, causal=causal)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])

@@ -3,9 +3,10 @@
 PyTorch counterpart of ``repro/models/moe.py``'s single-device route,
 ``moe_ffn``. Dispatch is sort-based, as in the reference: a stable argsort
 of the (token, choice) pairs by expert id, a capacity-bucketed scatter into
-(E, C, D), dense per-expert products, and a weighted ``index_add_`` back to
-the tokens. Pairs past an expert's capacity are dropped; which ones depends
-on the sort order, so the sort is stable, as ``jnp.argsort`` is.
+(E, C, D), dense per-expert products, and the weighted rows summed back
+into their tokens in a fixed order (``_combine``). Pairs past an expert's
+capacity are dropped; which ones depends on the sort order, so the sort is
+stable, as ``jnp.argsort`` is.
 
 The expert products are plain batched einsums, which the reference leaves
 to XLA outside any Pallas kernel. They touch every expert's weights
@@ -20,7 +21,9 @@ over the mesh's ``model`` group (rows as int8 with f32 row scales under
 and out. Both run on ``_ep_shards``, which carries a leading dim of shards;
 a rank holds one, and on a ``ShapeMesh`` (the dry run, no process group)
 one process holds every shard and the all-to-all is a transpose of the
-shard and block dims, the same exchange without a network.
+shard and block dims, the same exchange without a network. On ranks the
+route is differentiable with the bf16 exchange (``moe_ffn_ep_sharded``);
+the int8 one refuses autograd (ROADMAP fault 14).
 """
 from __future__ import annotations
 
@@ -123,9 +126,20 @@ def _moe_tokens(x2d, p, cfg):
                                   capacity, p["wi"], p["wg"], p["wo"],
                                   cfg.act)
     w_sorted = top_w.reshape(-1)[sort_idx].to(ys.dtype)        # (T*k,)
-    out = torch.zeros(t, d, dtype=ys.dtype, device=x2d.device)
-    out.index_add_(0, tok_idx, ys * w_sorted[:, None])
+    out = _combine(ys * w_sorted[:, None], sort_idx, k)
     return out.to(x2d.dtype), aux
+
+
+def _combine(rows, sort_idx, k: int):
+    """The weighted pair rows (..., T*k, D), in sorted order, summed into
+    their tokens (..., T, D): scattered back to the flat (token, choice)
+    order through ``sort_idx`` (a permutation, so each index is written
+    once) and summed over the k choices in a fixed order. The reference's
+    ``.at[tok_idx].add``, with no atomics, so a run repeats bit for bit on
+    the card (ROADMAP fault 13)."""
+    flat = torch.zeros_like(rows).scatter(
+        -2, sort_idx[..., None].expand(rows.shape), rows)
+    return flat.unflatten(-2, (-1, k)).sum(-2)
 
 
 def moe_ffn(x, p, cfg, *, group_size: int = 0):
@@ -168,16 +182,34 @@ def _dequant_rows(q, sc, dtype):
     return (q.float() * sc).to(dtype)
 
 
-def _exchange_group(group):
+def _all_to_all(t, group):
     """The all-to-all over ``group`` of a (1, n_sh, ...) buffer: block j
     goes to rank j, block i of the result came from rank i (the
     reference's ``lax.all_to_all(split 0, concat 0)``)."""
-    def exchange(t):
-        src = t[0].contiguous()
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=group)
-        return out[None]
-    return exchange
+    src = t[0].contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out[None]
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_all_to_all`` under autograd. Swapping the blocks is its own
+    inverse, so the backward is the same exchange of the output's
+    gradient (the transpose of ``lax.all_to_all``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _exchange_group(group):
+    """The all-to-all over ``group``, carrying its gradient."""
+    return lambda t: _AllToAll.apply(t, group)
 
 
 def _exchange_local(n_dp: int, n_sh: int):
@@ -272,10 +304,7 @@ def _ep_shards(x, p, cfg, *, n_sh: int, shard_id, exchange):
     y_tok = torch.nn.functional.pad(y_send, (0, 0, 0, 1))
     y_flat = y_tok[rows, tgt_sorted, slot] * keep[..., None].to(y_tok.dtype)
     w_sorted = top_w.reshape(r_, t * k).gather(1, sort_idx).to(y_flat.dtype)
-    out = torch.zeros(r_ * t, d, dtype=y_flat.dtype, device=dev)
-    out.index_add_(0, (rows * t + tok_idx).reshape(-1),
-                   (y_flat * w_sorted[..., None]).reshape(-1, d))
-    out = out.reshape(r_, t, d)
+    out = _combine(y_flat * w_sorted[..., None], sort_idx, k)
     if m.num_shared_experts:
         out = out + L.mlp(x, p["shared"], cfg.act)
     return out.to(x.dtype), aux
@@ -300,12 +329,20 @@ def moe_ffn_ep(x, p, cfg, *, group=None):
     x is this rank's token shard (B_l, S_l, D); the expert weights
     ``p['wi']`` etc. are this rank's expert shard (E_l, D, F). Tokens go to
     the rank that holds their expert with a static-capacity
-    ``all_to_all_single``, are computed there and come back. The exchange
-    carries no gradient, so this runs outside autograd."""
-    if L.records_grad(x, *(p[n] for n in ("wi", "wg", "wo"))):
-        raise NotImplementedError("expert parallelism across ranks runs "
-                                  "forward only: its all-to-all carries no "
-                                  "gradient")
+    ``all_to_all_single``, are computed there and come back.
+
+    Under autograd the exchange carries its gradient (``_AllToAll``), so
+    x's and the local experts' gradients are whole on return; the
+    router's and the shared expert's are this rank's part, from its own
+    tokens, for the caller to sum over the ranks, as ``shard_map``'s
+    transpose does (``moe_ffn_ep_sharded``). The int8 exchange refuses
+    autograd (ROADMAP fault 14): the reference rounds with ``jnp.round``,
+    whose derivative is 0, so its gradient is wrong."""
+    if cfg.moe.a2a_dtype == "int8" and L.records_grad(x, *_leaves(p)):
+        raise NotImplementedError(
+            "int8 expert parallelism under autograd (ROADMAP fault 14): the "
+            "reference's rounding passes no gradient through the exchange; "
+            "train with a2a_dtype='bf16'")
     n_sh = dist.get_world_size(group)
     shard_id = torch.full((1, 1), dist.get_rank(group), device=x.device)
     b, s, d = x.shape
@@ -315,22 +352,85 @@ def moe_ffn_ep(x, p, cfg, *, group=None):
     return out.reshape(b, s, d), aux[0]
 
 
-def _dp_index(mesh, dp) -> int:
-    """This rank's index over the dp axes, major to minor."""
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    idx = 0
-    for a in dp:
-        idx = idx * SH.axis_size(mesh, a) + coord[a]
-    return idx
+def _leaves(p):
+    for v in p.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _gather(t, mesh, axis: str, dim: int):
-    """``t``'s blocks from every rank of the mesh's ``axis``, joined along
-    ``dim`` in rank order."""
-    group = mesh.get_group(axis)
+def _mesh_groups(mesh):
+    """The process groups of the mesh's axes of size > 1: an all-reduce
+    over each in turn sums over every rank of the mesh."""
+    return [mesh.get_group(a) for a, n in SH.mesh_shape(mesh).items()
+            if n > 1]
+
+
+def _all_gather(t, group, dim):
+    """``t``'s blocks from every rank of ``group``, joined along ``dim`` in
+    rank order."""
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim)
+
+
+class _Gather(torch.autograd.Function):
+    """``_all_gather`` under autograd. The gradient of the joined tensor
+    is the same on every rank (the model past the route is replicated),
+    so the backward is this rank's block of it, with no collective."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor replicated on every rank entering the route: forward this
+    rank's block of it, cut along each ``(dim, group)`` of ``splits`` into
+    equal blocks over the group's ranks (none: the whole). Each rank
+    differentiates its own tokens and experts only, so the whole gradient
+    is the sum of the ranks' parts: the backward sums this rank's over
+    ``sums`` (the groups whose ranks hold the same block), then gathers
+    the blocks along ``splits`` in reverse: the transpose of
+    ``shard_map``'s replicated and sharded inputs."""
+
+    @staticmethod
+    def forward(ctx, t, splits, sums):
+        ctx.splits, ctx.sums = splits, sums
+        for dim, group in splits:
+            n = t.shape[dim] // dist.get_world_size(group)
+            t = t.narrow(dim, dist.get_rank(group) * n, n)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for group in ctx.sums:
+            dist.all_reduce(g, group=group)
+        for dim, group in reversed(ctx.splits):
+            g = _all_gather(g, group, dim)
+        return g, None, None
+
+
+class _MeshSum(torch.autograd.Function):
+    """The sum of ``t`` over every rank of the mesh (``groups``). What
+    follows it is replicated, so its gradient is already the same on
+    every rank, and the backward passes it on as it is."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        t = t.clone()
+        for group in groups:
+            dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def moe_ffn_ep_sharded(x, p, cfg, mesh):
@@ -339,6 +439,13 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
     split B over the dp axes and S over ``model``, experts E over
     ``model``; the output is gathered back over the same axes and the aux
     loss averaged over every axis (the reference's ``pmean``).
+
+    It is differentiable, with ``shard_map``'s transposes: the gradient
+    of each replicated input (x, the router, the experts, the shared
+    expert) is this rank's part summed over the mesh (``_Replicated``),
+    the gather's is this rank's block (``_Gather``) and the aux sum's
+    passes through (``_MeshSum``). So every rank ends a backward with the
+    whole gradient, and a train step needs no reduction of its own.
 
     On a ``ShapeMesh`` every shard runs in this process (the dry run)."""
     dp = SH.dp_axes(mesh)
@@ -358,18 +465,23 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
         out = out.reshape(n_dp, n_sh, bl, sl, d).transpose(1, 2) \
                  .reshape(b, s, d)
         return out, aux.mean()
-    mi = dist.get_rank(mesh.get_group("model"))
-    di = _dp_index(mesh, dp)
-    xl = x[di * bl:(di + 1) * bl, mi * sl:(mi + 1) * sl]
-    pl = {n: (v[mi * e_local:(mi + 1) * e_local]
-              if n in ("wi", "wg", "wo") else v) for n, v in p.items()}
+    groups = _mesh_groups(mesh)
+    dp_groups = [mesh.get_group(a) for a in dp       # major axis first
+                 if SH.axis_size(mesh, a) > 1]
+    model = [mesh.get_group("model")] if n_sh > 1 else []
+
+    def enter(t, splits=(), sums=groups):
+        return _Replicated.apply(t, tuple(splits), tuple(sums))
+    # tokens: B over dp, S over model, each block on one rank only
+    xl = enter(x, [(0, g) for g in dp_groups] + [(1, g) for g in model], ())
+    # experts: E over model, each block on every rank of the dp axes
+    experts = dict(splits=[(0, g) for g in model], sums=dp_groups)
+    pl = {n: (enter(v, **experts) if n in ("wi", "wg", "wo") else
+              {k: enter(w) for k, w in v.items()} if isinstance(v, dict)
+              else enter(v)) for n, v in p.items()}
     out, aux = moe_ffn_ep(xl, pl, cfg, group=mesh.get_group("model"))
-    if n_sh > 1:
-        out = _gather(out, mesh, "model", 1)
-    for a in reversed(dp):                 # minor axis first
-        if SH.axis_size(mesh, a) > 1:
-            out = _gather(out, mesh, a, 0)
-    aux = aux.clone()
-    for a in SH.mesh_shape(mesh):
-        dist.all_reduce(aux, group=mesh.get_group(a))
-    return out, aux / mesh.size()
+    for g in model:
+        out = _Gather.apply(out, g, 1)
+    for g in reversed(dp_groups):          # minor axis first
+        out = _Gather.apply(out, g, 0)
+    return out, _MeshSum.apply(aux, groups) / mesh.size()

@@ -18,7 +18,8 @@ autograd Functions, and ``cfg.remat`` wraps each repeat's blocks (and each
 encoder layer) in ``torch.utils.checkpoint``, as the reference wraps its
 scan bodies in ``jax.checkpoint``. ``constrain`` sits where the
 reference's does (a no-op on the port's plain tensors), and a MoE block
-takes the expert-parallel route (``moe_ffn_ep_sharded``) under the
+takes the expert-parallel route (``moe_ffn_ep_sharded``, which trains with
+the bf16 exchange and refuses the int8 one under autograd) under the
 reference's condition: ``moe_impl == "ep"`` and a ``use_mesh`` mesh in the
 ``2d`` layout whose ``model`` axis is > 1 and divides S; else ``moe_ffn``
 with ``moe_group``.

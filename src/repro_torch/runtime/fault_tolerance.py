@@ -32,7 +32,15 @@ class ResilientLoop:
     ``restore(dir, template) -> (state, step)``); it defaults to that
     module, resolved lazily so numpy-only callers (the serving daemon's
     job-store-backed adapter, tier-1 CI) never pull in the jax import
-    chain just by importing this module."""
+    chain just by importing this module.
+
+    On N ranks (a ``torch.distributed`` default group, as ``train()``
+    makes one loop a rank over one directory), only rank 0 saves, and
+    every rank meets at a barrier after each save and after each restore:
+    no rank reads a checkpoint while another writes or collects one. Before
+    each save every rank's state is checked to be the same bit for bit
+    (``_same_on_every_rank``). One process with no group saves and
+    restores as before."""
     step_fn: Callable            # (state, batch) -> (state, metrics)
     state: object                # pytree (params, opt state, ...)
     loader: object               # .load(step) -> batch
@@ -52,6 +60,7 @@ class ResilientLoop:
         """fail_at: {step: n_times} injected HostFailures (testing)."""
         fail_at = dict(fail_at or {})
         store = self._store()
+        rank, barrier, same = _ranks()
         step = start_step
         retries = 0
         while step < num_steps:
@@ -64,7 +73,10 @@ class ResilientLoop:
                 step += 1
                 retries = 0
                 if step % self.ckpt_every == 0 or step == num_steps:
-                    store.save(self.ckpt_dir, step, self.state)
+                    same(self.state, step)
+                    if rank == 0:
+                        store.save(self.ckpt_dir, step, self.state)
+                    barrier()
             except HostFailure:
                 retries += 1
                 if retries > self.max_retries:
@@ -76,7 +88,52 @@ class ResilientLoop:
                                                      self.state)
                 else:
                     step = start_step
+                barrier()
         return self.state, step
+
+
+def _ranks():
+    """(this rank, a barrier over the default process group, its
+    ``_same_on_every_rank``); (0, no-ops) with no group."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        return dist.get_rank(), dist.barrier, _same_on_every_rank
+    return 0, lambda: None, lambda state, step: None
+
+
+def _tensors(tree):
+    """The torch tensors of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif hasattr(tree, "element_size"):
+        yield tree
+
+
+def _same_on_every_rank(state, step: int) -> None:
+    """Raise unless every rank of the default group holds ``state`` bit for
+    bit. The ranks of ``train()`` stay in step with no reduction of their
+    own, each computing the same update, so a rank that drifted would go
+    unseen: each rank's fingerprint, the sum of every tensor leaf's bits
+    read as integers, is all-reduced to its largest and smallest."""
+    import torch
+    import torch.distributed as dist
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    leaves = [t.detach().contiguous() for t in _tensors(state)]
+    if not leaves:
+        return
+    total = sum(t.view(ints[t.element_size()]).sum(dtype=torch.int64)
+                for t in leaves)
+    spread = torch.stack([total, -total])
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    if int(spread[0]) != -int(spread[1]):
+        raise RuntimeError(
+            f"the ranks' states differ at step {step} (fingerprints from "
+            f"{-int(spread[1])} to {int(spread[0])}): a rank drifted from "
+            "the others")
 
 
 class StragglerBalancer:

@@ -676,3 +676,125 @@ def test_ep_at_world_size_one_on_nccl_equals_moe_ffn(cuda):
     finally:
         if own:
             dist.destroy_process_group()
+
+
+def test_moe_combine_repeats_bit_for_bit(cuda):
+    """ROADMAP fault 13: the combine sums each token's k rows in a fixed
+    order, with no atomics, so ``moe_ffn`` on bf16 (ungrouped and in
+    groups) and reduced deepseek-v2's forward repeat bit for bit."""
+    from repro_torch.models import moe as M
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    p = params["stage1"]["sub0"]["moe"]
+    p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()})
+         for k, v in p.items()}
+    x = torch.randn(4, 256, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    tokens = torch.from_numpy(make_batch(cfg, 2, 64)["tokens"]).to(cuda)
+    with torch.inference_mode():
+        for group in (0, 256):
+            a = M.moe_ffn(x, p, cfg, group_size=group)[0]
+            assert torch.equal(a, M.moe_ffn(x, p, cfg, group_size=group)[0])
+        a = T.forward(params, cfg, {"tokens": tokens})[0]
+        assert torch.equal(a, T.forward(params, cfg, {"tokens": tokens})[0])
+
+
+def test_ep_backward_at_world_size_one_on_nccl_equals_moe_ffn(cuda):
+    """EP under autograd over a one-rank NCCL group, reduced deepseek-v2
+    in f32 with no pair dropped: x's and every weight's gradient is
+    autograd's through ``moe_ffn`` (1e-5 of each leaf's largest value),
+    and the int8 exchange under autograd raises (ROADMAP fault 14)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda, dtype=torch.float32)
+    p = params["stage1"]["sub0"]["moe"]
+    p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()})
+         for k, v in p.items()}
+    x = torch.randn(2, 32, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(1)
+    try:
+        group = mesh.get_group("model")
+        grads = []
+        for fn in (lambda xx, pp: M.moe_ffn(xx, pp, cfg),
+                   lambda xx, pp: M.moe_ffn_ep(xx, pp, cfg, group=group)):
+            xx = x.clone().requires_grad_()
+            pp = T._tree_map(lambda w: w.clone().requires_grad_(), p)
+            out, aux = fn(xx, pp)
+            leaves = [xx] + list(M._leaves(pp))
+            grads.append(torch.autograd.grad(out.square().sum() + 3 * aux,
+                                             leaves))
+        for got, want in zip(grads[1], grads[0]):
+            torch.testing.assert_close(
+                got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+        int8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, a2a_dtype="int8"))
+        with pytest.raises(NotImplementedError, match="fault 14"):
+            M.moe_ffn_ep(x.requires_grad_(), p, int8, group=group)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def test_deepseek_gradients_repeat_bit_for_bit(cuda):
+    """Ranks that train together stay in step only if each computes the
+    same gradients, since no step reduces them: reduced deepseek-v2's
+    ``train_loss`` gradients in bf16 (MLA, K3, the MoE's gathers of each
+    token k times) repeat bit for bit on the card, and so do x's and the
+    weights' through ``moe_ffn_ep`` over a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, 2, 64).items()}
+
+    def grads(loss_fn, tree, *extra):
+        live = T._tree_map(lambda w: w.detach().requires_grad_(), tree)
+        leaves = [e.detach().requires_grad_() for e in extra]
+        T._tree_map(leaves.append, live)
+        return torch.autograd.grad(loss_fn(live, *leaves[:len(extra)]),
+                                   leaves, allow_unused=True,
+                                   materialize_grads=True)
+
+    def model_loss(p):
+        return T.train_loss(p, cfg, batch)[0]
+    first, again = grads(model_loss, params), grads(model_loss, params)
+    assert len(first) == len(again) > 20
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+    p = params["stage1"]["sub0"]["moe"]
+    p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()})
+         for k, v in p.items()}
+    x = torch.randn(2, 64, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(1)
+    try:
+        group = mesh.get_group("model")
+
+        def ep_loss(pp, xx):
+            out, aux = M.moe_ffn_ep(xx, pp, cfg, group=group)
+            return out.float().square().sum() + 3 * aux
+        first, again = grads(ep_loss, p, x), grads(ep_loss, p, x)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    finally:
+        if own:
+            dist.destroy_process_group()

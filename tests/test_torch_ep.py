@@ -294,14 +294,17 @@ def test_quant_rows_bit_for_bit():
 
 def test_ep_at_world_size_one_equals_moe_ffn():
     """One gloo rank (the card's NCCL case on the CPU): with no pair
-    dropped, EP is ``moe_ffn``; the send buffers' bytes follow the
-    capacity."""
+    dropped, EP is ``moe_ffn``, forward and gradient (x and every
+    weight, within 1e-5 of each leaf's largest value); the int8 exchange
+    under autograd raises (ROADMAP fault 14); the send buffers' bytes
+    follow the capacity."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import params_from_jax
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as M
+    from repro_torch.models.transformer import _tree_map as T_map
     cfg = reduced(get_config("deepseek-v2-236b"))
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=8.0))
@@ -319,8 +322,24 @@ def test_ep_at_world_size_one_equals_moe_ffn():
         for o, a in ((out, aux), (out2, aux2)):
             torch.testing.assert_close(o, want, **TOL)
             torch.testing.assert_close(a, want_aux, **TOL)
-        with pytest.raises(NotImplementedError, match="forward only"):
-            M.moe_ffn_ep(tx.requires_grad_(), tp, cfg,
+        grads = []
+        for fn in (lambda xx, pp: M.moe_ffn(xx, pp, cfg),
+                   lambda xx, pp: M.moe_ffn_ep(
+                       xx, pp, cfg, group=mesh.get_group("model"))):
+            xx = tx.clone().requires_grad_()
+            pp = T_map(lambda w: w.clone().requires_grad_(), tp)
+            o, a = fn(xx, pp)
+            leaves = [xx] + list(M._leaves(pp))
+            grads.append(torch.autograd.grad(o.square().sum() + 3 * a,
+                                             leaves))
+        assert len(grads[1]) == 8
+        for g, want in zip(*grads[::-1]):
+            torch.testing.assert_close(
+                g, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+        int8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, a2a_dtype="int8"))
+        with pytest.raises(NotImplementedError, match="fault 14"):
+            M.moe_ffn_ep(tx.requires_grad_(), tp, int8,
                          group=mesh.get_group("model"))
     finally:
         dist.destroy_process_group()

@@ -242,18 +242,63 @@ def test_k3_takes_every_full_width_head_dim_but_mla(arch):
         assert (d, _k3_head_dim(reduced(cfg))) == (192, 48)
 
 
+def _local_attn_model(arch, window):
+    """Reduced ``arch`` with ``attention_kind="local"`` (a window inside its
+    ``attn`` blocks) in both packages, and the reference's weights."""
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              attention_kind="local", local_window=window)
+    tcfg = dataclasses.replace(reduced(tconfigs.get_config(arch)),
+                               attention_kind="local", local_window=window)
+    jp = JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return cfg, tcfg, jp, tp
+
+
+def _no_k3(*args, **kwargs):
+    raise AssertionError("a windowed attn block reached K3")
+
+
 @pytest.mark.parametrize("arch,reason", [("phi3-mini-3.8b", "item 18")])
-def test_other_block_kinds_name_their_roadmap_item(arch, reason):
-    """What the port still lacks raises and names its ROADMAP item: since
-    item 10 every arch's blocks run (Whisper's raise went with it), and a
-    window inside an ``attn`` block is what is left."""
-    cfg = dataclasses.replace(reduced(tconfigs.get_config(arch)),
-                              attention_kind="local")
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match=reason):
-        T.forward(params, cfg, {"tokens": torch.zeros(1, 8,
-                                                      dtype=torch.long)})
+def test_other_block_kinds_name_their_roadmap_item(arch, reason,
+                                                   monkeypatch):
+    """Fault 12: a window inside an ``attn`` block (``attention_kind=
+    "local"``, window 5 below the 32-token sequence) runs the reference's
+    plain windowed attention, and its logits match ``JT.forward`` within
+    2e-4. K3 has no window (``reason``: ROADMAP item 18), so the call must
+    not reach it."""
+    assert reason == "item 18"
+    cfg, tcfg, jp, tp = _local_attn_model(arch, 5)
+    raw = make_batch(cfg, 2, 32)
+    want, _, _ = JT.forward(jp, cfg, {"tokens": jnp.asarray(raw["tokens"])})
+    monkeypatch.setattr(A, "_flash", _no_k3)
+    got, _, _ = T.forward(tp, tcfg, {"tokens": torch.from_numpy(raw["tokens"])})
+    close(got, want, 2e-4)
+    unwindowed, _, _ = JT.forward(jp, dataclasses.replace(
+        cfg, attention_kind="full"), {"tokens": jnp.asarray(raw["tokens"])})
+    assert np.abs(np.asarray(unwindowed) - np.asarray(want)).max() > 1e-2
+
+
+def test_local_attn_block_decode_matches(monkeypatch):
+    """Fault 12, decode: a 16-token prompt into the cache (the plain
+    ``chunked_attention`` with the window) and 8 decode steps over the
+    window's last 5 keys (``decode_attention(window=)``), each against
+    the reference's within 2e-4, K3 never reached."""
+    cfg, tcfg, jp, tp = _local_attn_model("phi3-mini-3.8b", 5)
+    b, s, prompt = 2, 24, 16
+    toks = make_batch(cfg, b, s)["tokens"]
+    monkeypatch.setattr(A, "_flash", _no_k3)
+    jc = JT.init_decode_caches(cfg, b, s, dtype=jnp.float32)
+    tc = T.init_decode_caches(tcfg, b, s, dtype=torch.float32, device="cpu")
+    jl, jc = JT.prefill(jp, cfg, {"tokens": jnp.asarray(toks[:, :prompt])}, jc)
+    tl, tc = T.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :prompt])},
+                       tc)
+    close(tl, jl, 2e-4)
+    step = jax.jit(lambda p, c, tok, tt: JT.decode_step(p, cfg, c, tok, tt))
+    for pos in range(prompt, s):
+        jl, jc = step(jp, jc, jnp.asarray(toks[:, pos]), jnp.int32(pos))
+        tl, tc = T.decode_step(tp, tcfg, tc, torch.from_numpy(toks[:, pos]),
+                               pos)
+        close(tl, jl, 2e-4)
 
 
 def _mla_model(arch, **moe):
