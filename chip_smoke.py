@@ -75,7 +75,10 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      timed;
   5. (run after 3e) training, counted the same way: ``make_train_step``
      with the reference's ``OptConfig`` (f32 moments) for 3 steps on one
-     repeated batch at full width: phi3-mini-3.8b uncut (1 x 4096, K3 64
+     repeated batch at full width, under a (1, 1) ``DeviceMesh`` over a
+     one-rank NCCL group (the data-parallel path at world size 1), after
+     the same steps with no mesh, whose losses and params it equals bit
+     for bit (asserted): phi3-mini-3.8b uncut (1 x 4096, K3 64
      launches a step: 32 layers, forward and remat), rwkv6-1.6b uncut
      (1 x 2048, K4 48) and recurrentgemma-9b cut to 3 layers (1 x 2048, K5
      4), one arch's weights at a time; each step's loss finite, every
@@ -103,7 +106,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      gradients of x and every weight through ``moe_ffn_ep`` against
      autograd through ``moe_ffn``, each leaf within bf16's 2e-2, int8
      under autograd refused, forward plus backward timed; the params saved
-     and restored with ``param_shardings``, bit for bit;
+     and restored with ``param_shardings``, bit for bit; three
+     ``make_train_step`` steps of reduced DeepSeek-V2 under the mesh and
+     with none, their losses, params and moments equal bit for bit;
   7. (run after 6) the three examples of ``repro_torch.examples``
      (quickstart, multi_tenant_serving, fault_tolerant_training) on the
      card in this process, counted the same way, each under the profiler
@@ -740,16 +745,22 @@ def training_phase(torch, dev, card) -> dict:
     """Phase 5: ``make_train_step`` at full width with the reference's
     ``OptConfig`` (f32 moments), ``TRAIN_STEPS`` steps of each
     ``TRAIN_CELLS`` arch on one fixed ``SyntheticLoader(seed=0)`` batch, one
-    arch's weights at a time; then the reduced ``train()`` through a
-    failure and a restore. Returns the kernel launches of the steps and of
+    arch's weights at a time, with no mesh and then under the (1, 1) mesh
+    of a one-rank NCCL group (made here, destroyed before ``train()``),
+    bit for bit the same; then the reduced ``train()`` through a failure
+    and a restore. Returns the kernel launches of the steps and of
     ``train()``."""
+    import torch.distributed as dist
+
     import repro_torch.optim.adamw as adamw
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLoader
     from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models import recurrent as R
+    from repro_torch.models import sharding as SH
     from repro_torch.models import transformer as T
 
     total = dict.fromkeys(_build.NAMES, 0)
@@ -772,10 +783,10 @@ def training_phase(torch, dev, card) -> dict:
         seen["opt_events"] = (e0, e1)
         return out
 
-    def run(arch, cfg, b, s):
-        """``TRAIN_STEPS`` steps from the seeded init: (params, state,
-        step, batch, losses, step seconds, AdamW ms, launches a step,
-        (grad norm, largest leaf, its norm) a step)."""
+    def run(arch, cfg, b, s, mesh=None):
+        """``TRAIN_STEPS`` steps from the seeded init under ``mesh``:
+        (params, state, step, batch, losses, step seconds, AdamW ms,
+        launches a step, (grad norm, largest leaf, its norm) a step)."""
         params = T.init_params(cfg, torch.Generator(
             device=dev).manual_seed(0), device=dev)
         opt_cfg = adamw.OptConfig()
@@ -788,7 +799,8 @@ def training_phase(torch, dev, card) -> dict:
             ops.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, state, m = step(params, state, batch)
+            with SH.use_mesh(mesh):
+                params, state, m = step(params, state, batch)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             e0, e1 = seen["opt_events"]
@@ -806,8 +818,18 @@ def training_phase(torch, dev, card) -> dict:
         return (params, state, step, batch, losses, step_s, opt_ms, launched,
                 norms)
 
+    def counted(launched, op, per_step, arch):
+        for got in launched:
+            for name in _build.NAMES:
+                total[name] += got[name]
+            assert got[op] == per_step and \
+                sum(got.values()) == per_step, (arch, got)
+
+    assert not dist.is_initialized(), "an earlier phase left a process group"
+    mesh = make_host_mesh(1)     # a one-rank NCCL group: the (1, 1) mesh
     adamw.update = checked_update
     try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
         for arch, depth, b, s, op, sym, per_step, falls in TRAIN_CELLS:
             full = get_config(arch)
             cfg = (dataclasses.replace(full, num_layers=depth) if depth
@@ -816,20 +838,43 @@ def training_phase(torch, dev, card) -> dict:
                     "rg_lru": "rglru"}[op]
             n_kind = cfg.layer_kinds().count(kind)
             assert cfg.remat and 2 * n_kind == per_step, (arch, n_kind)
+            # the steps with no mesh first, their params kept on the host;
+            # then the same steps under the (1, 1) mesh, which must split
+            # and exchange nothing: the same losses and params, bit for bit
+            nomesh = run(arch, cfg, b, s)
+            counted(nomesh[7], op, per_step, arch)
+            nomesh_losses, nomesh_s = nomesh[4], nomesh[5]
+            nomesh_params = [t.cpu() for _, t in named_leaves(nomesh[0])]
+            del nomesh
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             params, state, step, batch, losses, step_s, opt_ms, launched, \
-                norms = run(arch, cfg, b, s)
+                norms = run(arch, cfg, b, s, mesh)
             peak = torch.cuda.max_memory_allocated() / 2**30
             n_params = T.count_params(params)
-            for got in launched:
-                for name in _build.NAMES:
-                    total[name] += got[name]
-                assert got[op] == per_step and \
-                    sum(got.values()) == per_step, (arch, got)
+            counted(launched, op, per_step, arch)
+            assert losses == nomesh_losses, (arch, losses, nomesh_losses)
+            leaves = named_leaves(params)
+            differ = [n for (n, t), u in zip(leaves, nomesh_params)
+                      if not torch.equal(t.cpu(), u)]
+            assert len(leaves) == len(nomesh_params) and not differ, \
+                (arch, differ)
+            del nomesh_params
+            log(f"[train {arch} mesh] the (1, 1) mesh over a one-rank NCCL "
+                f"group against no mesh, {TRAIN_STEPS} steps each from the "
+                f"same init: losses and all {len(leaves)} parameter leaves "
+                f"equal bit for bit (torch.equal, asserted); step times "
+                f"under the mesh {', '.join(f'{x * 1e3:.1f}' for x in step_s)}"
+                f" ms, with no mesh "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in nomesh_s)} ms; {card}")
             if falls:
                 assert losses[-1] < losses[0], (arch, losses)
             opt_bytes = adamw_bytes(params, state)
-            evs = kernel_events(torch, lambda: step(params, state, batch),
+
+            def mesh_step():
+                with SH.use_mesh(mesh):
+                    return step(params, state, batch)
+            evs = kernel_events(torch, mesh_step,
                                 lambda evs: n_launches(evs, sym) == per_step)
             dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
             assert dev_ms > 0, f"{arch}: the profiler saw no device time"
@@ -845,7 +890,8 @@ def training_phase(torch, dev, card) -> dict:
             cut = (f"cut num_layers {full.num_layers} -> {depth}" if depth
                    else "uncut")
             log(f"[train {arch}] {cut}, full width, bf16 params, f32 AdamW "
-                f"moments (OptConfig defaults), remat on, batch {b} x seq "
+                f"moments (OptConfig defaults), remat on, the (1, 1) mesh, "
+                f"batch {b} x seq "
                 f"{s}: {n_params / 1e9:.3f} B params; losses "
                 f"{', '.join(f'{x:.4f}' for x in losses)} on one repeated "
                 f"batch{' (falling, asserted)' if falls else ''}; grad norms "
@@ -893,6 +939,7 @@ def training_phase(torch, dev, card) -> dict:
             torch.cuda.empty_cache()
     finally:
         adamw.update = real_update
+        dist.destroy_process_group()
     # the reference's test_train_loop_end_to_end on the card, with a
     # restore that loads a checkpoint: ckpt_every is max(8 // 4, 5) = 5,
     # so step 5 is saved before the failure at 6 and run once more after.
@@ -975,6 +1022,8 @@ INT8_STEPS = 4
 # moe_ffn at EP_TOKENS with the index_add_ combine that the fixed-order one
 # replaced (phase 6 on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6)
 EARLIER_MOE_FFN_MS = 7.123
+# phase 6's train steps of reduced DeepSeek-V2 on the (1, 1) mesh
+DP_BATCH, DP_SEQ = 4, 64
 
 
 def _drop_counter(torch, M, seen):
@@ -983,7 +1032,7 @@ def _drop_counter(torch, M, seen):
     the first call's input and weights (the first MoE layer's)."""
     real = M._moe_tokens
 
-    def counted(x2d, p, cfg):
+    def counted(x2d, p, cfg, *block):
         seen.setdefault("first", (x2d, p))
         m = cfg.moe
         _, top_i, _ = M._route(x2d, p["router"], m)
@@ -993,7 +1042,7 @@ def _drop_counter(torch, M, seen):
         seen["dropped"] = seen["dropped"] + (load - cap).clamp(min=0).sum()
         seen["max_load"] = torch.maximum(seen["max_load"], load.max())
         seen["groups"].append((int(x2d.shape[0]), cap))
-        return real(x2d, p, cfg)
+        return real(x2d, p, cfg, *block)
     return real, counted
 
 
@@ -1081,22 +1130,27 @@ def mesh_phase(torch, dev, card) -> dict:
     ungrouped one where no pair drops; ``moe_ffn_ep`` and
     ``moe_ffn_ep_sharded`` (NCCL's all-to-all at world size 1, bf16 and
     int8) against ``moe_ffn`` on ``EP_TOKENS`` tokens; the params saved
-    and restored with ``param_shardings``, bit for bit. Returns the kernel
-    launches of the two forwards."""
+    and restored with ``param_shardings``, bit for bit; reduced
+    DeepSeek-V2's train step under the mesh against the step with none,
+    bit for bit. Returns the kernel launches of the forwards and the
+    steps."""
     import shutil
 
     import torch.distributed as dist
 
     from repro_torch.checkpoint import store
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import SHAPES, get_config, reduced
+    from repro_torch.data.synthetic import SyntheticLoader
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import specs as SP
     from repro_torch.launch.dryrun import _leaves, argument_bytes
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.models import sharding as SH
     from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
 
     assert not dist.is_initialized(), "an earlier phase left a process group"
     mesh = make_host_mesh(1)
@@ -1320,6 +1374,44 @@ def mesh_phase(torch, dev, card) -> dict:
             f"card, bit for bit")
         del params, cut, got, pairs
         torch.cuda.empty_cache()
+
+        # the train step on the mesh: at world size 1 the dp block is the
+        # whole batch and nothing is exchanged, so it is the step with no
+        # mesh, bit for bit
+        red = reduced(full)
+        opt = adamw.OptConfig(warmup_steps=1)
+        loader = SyntheticLoader(red, DP_BATCH, DP_SEQ, seed=0)
+        batches = [{k: torch.as_tensor(v, device=dev)
+                    for k, v in loader.load(i).items()}
+                   for i in range(TRAIN_STEPS)]
+        runs = {}
+        for key, on in (("none", None), ("mesh", mesh)):
+            pp = T.init_params(red, torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+            st = adamw.init(opt, pp)
+            step = make_train_step(red, opt)
+            losses = []
+            ops.reset_launches()
+            with SH.use_mesh(on):
+                for b in batches:
+                    pp, st, met = step(pp, st, b)
+                    losses.append(float(met["loss"]))
+            for name in _build.NAMES:
+                launches[name] += ops.LAUNCHES[name]
+            flash = ops.LAUNCHES["flash_attention"]
+            runs[key] = (losses, [t for _, t in named_leaves(
+                {"p": pp, "mu": st["mu"], "nu": st["nu"]})])
+        assert flash == TRAIN_STEPS * red.num_layers, flash
+        assert runs["mesh"][0] == runs["none"][0], runs
+        assert all(torch.equal(a, b) for a, b in zip(runs["mesh"][1],
+                                                     runs["none"][1]))
+        log(f"[mesh train] reduced {full.name} (bf16, {red.num_layers} "
+            f"layers, MLA + MoE), make_train_step for {TRAIN_STEPS} steps "
+            f"of {DP_BATCH} x {DP_SEQ} under the (1, 1) mesh and with no "
+            f"mesh: losses {', '.join(f'{x:.4f}' for x in runs['mesh'][0])}"
+            f" and all {len(runs['mesh'][1])} param and moment leaves equal "
+            f"bit for bit (asserted); flash_attention {flash} launches in "
+            f"each run")
         return launches
     finally:
         dist.destroy_process_group()

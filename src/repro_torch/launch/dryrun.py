@@ -17,7 +17,8 @@ and no collective runs. A record holds:
 - ``cost.flops``: the step's FLOPs as ``torch.utils.flop_counter``'s
   ``FlopCounterMode`` counts them: every matmul-class op (mm, bmm, addmm,
   attention, convolution) of every layer, forward and backward, and no
-  elementwise op. XLA's ``cost_analysis`` counts each ``lax.scan`` body once
+  elementwise op, over the global batch (on a ``ShapeMesh`` the train
+  step cuts no dp block: ``sharding.dp_block``). XLA's ``cost_analysis`` counts each ``lax.scan`` body once
   (``benchmarks/roofline.py``), so the two are not the same number;
 - ``model_flops`` and ``flops`` from ``core/costs.cell_cost``, the analytic
   count, beside it;
@@ -57,9 +58,11 @@ from repro_torch.models import moe as M
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 
-COUNTED_BY = ("FlopCounterMode over every layer; on meta tensors WKV6 runs "
-              "its chunks at once and the RG-LRU scan without its loop, "
-              "the same matmuls (none in the RG-LRU)")
+COUNTED_BY = ("FlopCounterMode over every layer of the global batch's step "
+              "(one process runs every shard of the shape-only mesh, so no "
+              "dp block is cut); on meta tensors WKV6 runs its chunks at "
+              "once and the RG-LRU scan without its loop, the same matmuls "
+              "(none in the RG-LRU)")
 NOT_COUNTED = {
     "temp_size_in_bytes": "XLA's buffer assignment of the compiled step; "
                           "the port runs the step eagerly on meta tensors, "

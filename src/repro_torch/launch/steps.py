@@ -6,32 +6,69 @@ gradient of ``train_loss`` over every parameter leaf with
 card) and applies ``adamw.update``, which writes the parameters and moments
 in place. ``moe_group`` > 0 routes each MoE block's tokens in groups of
 that many, as the reference's step passes it to ``moe_ffn(group_size=)``.
+
+Under a ``use_mesh`` mesh whose dp size divides the batch, the step takes
+the global batch, as the reference's does, and computes only this rank's
+block of its rows (``sharding.dp_block``): the loss is this rank's share
+of the global one, and the gradients are summed over the dp axes before
+the update, one all-reduce of a flat buffer a dtype. So every rank ends
+the step with the same parameters, moments and metrics (the global loss),
+and the reference's values. Otherwise (no mesh, dp size 1, a batch the dp
+size does not divide) every rank runs the whole batch and nothing is
+exchanged.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
 
+def _sum_over_blocks(block, tensors):
+    """``tensors`` summed over the dp blocks: packed in order into one
+    flat buffer a dtype, each all-reduced, and split back into views."""
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = list(tensors)
+    for idx in by_dtype.values():
+        flat = block.sum_(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        parts = flat.split([tensors[i].numel() for i in idx])
+        for i, part in zip(idx, parts):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
 def make_train_step(cfg, opt_cfg, *, moe_group: int = 0):
     def train_step(params, opt_state, batch):
+        block = SH.dp_block(SH.current_mesh(), batch["tokens"].shape[0])
+        if block is not None:
+            rows = block.rows(batch["tokens"].shape[0])
+            batch = {k: v[rows] for k, v in batch.items()}
         # leaves of the graph that share the parameters' storage, so the
         # caller's tensors never require a gradient
         live = T._tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = []
         T._tree_map(leaves.append, live)
-        loss, metrics = T.train_loss(live, cfg, batch, moe_group=moe_group)
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
+        with SH.use_dp_block(block):
+            loss, metrics = T.train_loss(live, cfg, batch,
+                                         moe_group=moe_group)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         del live, leaves
+        metrics = dict({k: v.detach() for k, v in metrics.items()},
+                       loss=loss.detach())
+        if block is not None:
+            grads = _sum_over_blocks(block, grads)
+            metrics = dict(zip(metrics, _sum_over_blocks(
+                block, list(metrics.values()))))
+        grads = iter(grads)
         params, opt_state, opt_metrics = adamw.update(
             opt_cfg, params, T._tree_map(lambda _: next(grads), params),
             opt_state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics = dict(metrics, loss=loss.detach(), **opt_metrics)
-        return params, opt_state, metrics
+        return params, opt_state, dict(metrics, **opt_metrics)
     return train_step
 
 

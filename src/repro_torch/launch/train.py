@@ -9,12 +9,17 @@ latest checkpoint after a failure). It runs on the card unless
 ``--device`` names another; on a machine without one use ``--device cpu
 --reduced``.
 
-On N ranks (a default process group made by the caller) every rank runs
-the whole batch on the replicated model; a MoE block takes the
-expert-parallel route over the mesh, whose backward sums each rank's part
-of the gradient, so the ranks' parameters stay bit for bit the same with
-no reduction in the step. Only rank 0 writes checkpoints
-(``ResilientLoop``).
+On N ranks (a default process group made by the caller) every rank reads
+the same global batch from the same ``SyntheticLoader(seed=)`` (after a
+restore too: the loader's batch is a function of the step), and the step
+computes only this rank's block of its rows over the mesh's dp axes, the
+front-end stubs' (``patches``, ``audio``) included, and sums the
+gradients over those axes (``launch/steps.py``), so every rank ends each
+step with the same parameters and moments, the reference's on as many
+devices. A batch that the dp size does not divide stays whole on every
+rank, as the reference's sharding rule leaves it. A MoE block on the
+expert-parallel route splits its rank's block further over ``model``.
+Only rank 0 writes checkpoints (``ResilientLoop``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch phi3-mini-3.8b --reduced --steps 50 --batch 8 --seq 128

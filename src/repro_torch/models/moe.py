@@ -8,6 +8,12 @@ into their tokens in a fixed order (``_combine``). Pairs past an expert's
 capacity are dropped; which ones depends on the sort order, so the sort is
 stable, as ``jnp.argsort`` is.
 
+Under a dp block (the train step's, ``sharding.use_dp_block``) x is this
+rank's block of the global batch, and the route keeps the reference's
+global semantics: the capacity of the global tokens, the drops of the
+global sort (one all-gather of the E expert counts), and the aux as this
+rank's share of the global one.
+
 The expert products are plain batched einsums, which the reference leaves
 to XLA outside any Pallas kernel. They touch every expert's weights
 whatever the routing, so a decode step reads all E experts.
@@ -67,9 +73,9 @@ def _counts(idx, n: int):
     return out.scatter_add_(-1, idx, torch.ones_like(idx))
 
 
-def _route(x2d, router_w, m):
-    """x2d: (..., T, D) -> (top_w, top_i) each (..., T, k), and the
-    Switch-style load-balance aux loss, one per leading index."""
+def _top_k(x2d, router_w, m):
+    """x2d: (..., T, D) -> the router's scores (..., T, E) and the top-k
+    choices' weights, renormalised, and ids, each (..., T, k)."""
     logits = x2d.float() @ router_w.float()                    # (T, E)
     if m.router_act == "sigmoid":
         scores = torch.sigmoid(logits)
@@ -77,11 +83,25 @@ def _route(x2d, router_w, m):
         scores = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(scores, m.top_k, dim=-1)         # descending
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    probs_mean = scores.mean(dim=-2)                           # (E,)
-    counts = _counts(top_i.flatten(-2), m.num_experts).float()
+    return scores, top_w, top_i
+
+
+def _balance_aux(probs_mean, counts, m):
+    """The Switch-style load-balance loss E·Σ frac·probs_mean, ``frac``
+    the share of the top-k choices (``counts``, (..., E)) each expert
+    got."""
+    counts = counts.float()
     frac = counts / torch.clamp(counts.sum(-1, keepdim=True), min=1.0)
-    aux = m.num_experts * torch.sum(frac * probs_mean, -1) * m.aux_loss_coef
-    return top_w, top_i, aux
+    return m.num_experts * torch.sum(frac * probs_mean, -1) * \
+        m.aux_loss_coef
+
+
+def _route(x2d, router_w, m):
+    """x2d: (..., T, D) -> (top_w, top_i) each (..., T, k), and the
+    Switch-style load-balance aux loss, one per leading index."""
+    scores, top_w, top_i = _top_k(x2d, router_w, m)
+    counts = _counts(top_i.flatten(-2), m.num_experts)
+    return top_w, top_i, _balance_aux(scores.mean(dim=-2), counts, m)
 
 
 def _bucketed_expert_compute(xs, seg, pos_in_seg, num_experts, capacity,
@@ -107,21 +127,48 @@ def _bucketed_expert_compute(xs, seg, pos_in_seg, num_experts, capacity,
     return y[seg, slot] * keep[:, None].to(y.dtype)            # (N, D)
 
 
-def _moe_tokens(x2d, p, cfg):
+def _moe_tokens(x2d, p, cfg, block=None):
+    """x2d (T, D) routed as one group. Under a ``DpBlock`` the group is the
+    global tokens, of which x2d is this rank's block: the capacity comes
+    from the global count, and a pair's place in its expert's bucket is its
+    place in global token order (the counts of the blocks before this one,
+    plus its place here), so every rank keeps exactly the pairs the one
+    global sort keeps, and buckets and computes only its own."""
     m = cfg.moe
     t, d = x2d.shape
     k = m.top_k
-    top_w, top_i, aux = _route(x2d, p["router"], m)
-    capacity = max(int(np.ceil(t * k / m.num_experts * m.capacity_factor)),
-                   4)
+    if block is None:
+        top_w, top_i, aux = _route(x2d, p["router"], m)
+    else:
+        scores, top_w, top_i = _top_k(x2d, p["router"], m)
     flat_e = top_i.reshape(-1)                                 # (T*k,)
+    counts = _counts(flat_e, m.num_experts)
+    t_all = t
+    if block is not None:
+        # frac from the global counts (they carry no gradient), probs_mean
+        # this block's score sum over the global token count: the shares
+        # and their gradients sum over the blocks to the global aux's
+        every = block.gather(counts)
+        t_all = t * block.size
+        aux = _balance_aux(scores.sum(0) / t_all, every.sum(0), m)
+    capacity = max(int(np.ceil(t_all * k / m.num_experts
+                               * m.capacity_factor)), 4)
     sort_idx = torch.argsort(flat_e, stable=True)
     tok_idx = sort_idx // k
     seg = flat_e[sort_idx]
     xs = x2d[tok_idx]                                          # (T*k, D)
-    counts = _counts(flat_e, m.num_experts)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
+    if block is not None:
+        # kept: the pair's global place (the earlier blocks' pairs of its
+        # expert first) is within the capacity; bucketed at its place
+        # here, in buckets as deep as this rank's most kept pairs of one
+        # expert
+        before = every[:block.index].sum(0)
+        keep = pos_in_seg + before[seg] < capacity
+        pos_in_seg = torch.where(keep, pos_in_seg, t * k)
+        capacity = max(int((capacity - before).clamp(min=0)
+                           .minimum(counts).max()), 1)
     ys = _bucketed_expert_compute(xs, seg, pos_in_seg, m.num_experts,
                                   capacity, p["wi"], p["wg"], p["wo"],
                                   cfg.act)
@@ -147,20 +194,37 @@ def moe_ffn(x, p, cfg, *, group_size: int = 0):
 
     ``group_size`` > 0 routes the tokens in groups of that many, one after
     the other (the reference's ``lax.scan``), each with its own capacity;
-    the aux loss is the groups' mean."""
+    the aux loss is the groups' mean.
+
+    Under a ``DpBlock`` (``sharding.use_dp_block``) x is this rank's block
+    of the global batch and the aux is its share of the global one. With
+    no groups the tokens route as one global group (``_moe_tokens``). A
+    group size that divides this rank's tokens makes this rank's groups a
+    block of the global ones, each routed alone, and the aux share this
+    rank's mean over the blocks; any other group size would route other
+    groups than the reference's, and raises."""
     m = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
     t = x2d.shape[0]
-    if group_size <= 0 or group_size >= t:
-        out, aux = _moe_tokens(x2d, p, cfg)
+    block = SH.current_dp_block()
+    t_all = t * (block.size if block is not None else 1)
+    if group_size <= 0 or group_size >= t_all:
+        out, aux = _moe_tokens(x2d, p, cfg, block)
     else:
+        if t_all % group_size:
+            raise ValueError(f"moe_ffn: {t_all} tokens do not divide into "
+                             f"groups of {group_size}")
         if t % group_size:
-            raise ValueError(f"moe_ffn: {t} tokens do not divide into groups "
-                             f"of {group_size}")
+            raise ValueError(
+                f"moe_ffn: this rank's {t} of the batch's {t_all} tokens do "
+                f"not divide into groups of {group_size}, so its groups "
+                f"would not be the reference's")
         outs, auxs = zip(*(_moe_tokens(xi, p, cfg)
                            for xi in x2d.split(group_size)))
         out, aux = torch.cat(outs), torch.stack(auxs).mean()
+        if block is not None:
+            aux = aux / block.size
     if m.num_shared_experts:
         out = out + L.mlp(x2d, p["shared"], cfg.act)
     return out.reshape(b, s, d), aux
@@ -357,13 +421,6 @@ def _leaves(p):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _mesh_groups(mesh):
-    """The process groups of the mesh's axes of size > 1: an all-reduce
-    over each in turn sums over every rank of the mesh."""
-    return [mesh.get_group(a) for a, n in SH.mesh_shape(mesh).items()
-            if n > 1]
-
-
 def _all_gather(t, group, dim):
     """``t``'s blocks from every rank of ``group``, joined along ``dim`` in
     rank order."""
@@ -434,18 +491,24 @@ class _MeshSum(torch.autograd.Function):
 
 
 def moe_ffn_ep_sharded(x, p, cfg, mesh):
-    """The reference's ``shard_map`` around ``moe_ffn_ep``: x (B, S, D) is
-    the global view (the port's model is replicated on each rank). Tokens
-    split B over the dp axes and S over ``model``, experts E over
-    ``model``; the output is gathered back over the same axes and the aux
-    loss averaged over every axis (the reference's ``pmean``).
+    """The reference's ``shard_map`` around ``moe_ffn_ep``: tokens split B
+    over the dp axes and S over ``model``, experts E over ``model``; the
+    output is gathered back over the same axes and the aux loss averaged
+    over every shard (the reference's ``pmean``).
+
+    x (B, S, D) is the global view (the port's model is replicated on each
+    rank), unless a ``DpBlock`` is in force (``sharding.use_dp_block``, the
+    train step's): then x is already this rank's block of B, the route
+    splits and gathers S over ``model`` only, and the aux is this rank's
+    share, the mean over its ``model`` shards over the dp size.
 
     It is differentiable, with ``shard_map``'s transposes: the gradient
     of each replicated input (x, the router, the experts, the shared
-    expert) is this rank's part summed over the mesh (``_Replicated``),
-    the gather's is this rank's block (``_Gather``) and the aux sum's
-    passes through (``_MeshSum``). So every rank ends a backward with the
-    whole gradient, and a train step needs no reduction of its own.
+    expert) is this rank's part summed over the axes it splits
+    (``_Replicated``), the gather's is this rank's block (``_Gather``) and
+    the aux sum's passes through (``_MeshSum``). So with the global view
+    every rank ends a backward with the whole gradient; on a block, with
+    its block's, which the train step sums over the dp axes.
 
     On a ``ShapeMesh`` every shard runs in this process (the dry run)."""
     dp = SH.dp_axes(mesh)
@@ -465,10 +528,16 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
         out = out.reshape(n_dp, n_sh, bl, sl, d).transpose(1, 2) \
                  .reshape(b, s, d)
         return out, aux.mean()
-    groups = _mesh_groups(mesh)
-    dp_groups = [mesh.get_group(a) for a in dp       # major axis first
-                 if SH.axis_size(mesh, a) > 1]
+    if SH.current_dp_block() is not None:     # x is this rank's block of B
+        dp_groups = []
+    else:
+        if b % n_dp:
+            raise ValueError(f"moe_ffn_ep_sharded: a batch of {b} does not "
+                             f"split over the dp size {n_dp}")
+        dp_groups = [mesh.get_group(a) for a in dp   # major axis first
+                     if SH.axis_size(mesh, a) > 1]
     model = [mesh.get_group("model")] if n_sh > 1 else []
+    groups = dp_groups + model
 
     def enter(t, splits=(), sums=groups):
         return _Replicated.apply(t, tuple(splits), tuple(sums))
@@ -484,4 +553,4 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
         out = _Gather.apply(out, g, 1)
     for g in reversed(dp_groups):          # minor axis first
         out = _Gather.apply(out, g, 0)
-    return out, _MeshSum.apply(aux, groups) / mesh.size()
+    return out, _MeshSum.apply(aux, groups) / (n_dp * n_sh)

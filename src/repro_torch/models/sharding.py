@@ -15,6 +15,13 @@ The model calls ``constrain(x, *logical_axes)`` where the reference does.
 The port's model is replicated on each rank and its tensors are plain, so
 ``constrain`` returns a plain tensor unchanged; only a ``DTensor`` is
 redistributed. With no mesh in context it is a no-op, as in the reference.
+
+The batch half of the reference's partition is explicit: ``dp_block``
+says which block of a global batch's rows this rank holds over the mesh's
+dp axes (the reference's ``"dp"`` entries), and the train step runs on
+that block under ``use_dp_block``. The few statistics that must be global
+(the masked cross-entropy's token count, the MoE's expert counts) read
+the block from there and exchange them over its process groups.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import dataclasses
 import threading
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 _CTX = threading.local()
 
@@ -85,6 +94,80 @@ def dp_axes(mesh, layout: str = None):
 def _fits(dim: int, mesh, axis) -> bool:
     n = axis_size(mesh, axis)
     return n > 1 and dim % n == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DpBlock:
+    """This rank's block of a global batch: block ``index`` of ``size``
+    equal blocks of rows, in row order, the dp axes' coordinates read
+    major axis first (as the reference's batch sharding lays them out);
+    ``groups``: the process groups of the dp axes of size > 1, major
+    first."""
+    index: int
+    size: int
+    groups: tuple
+
+    def rows(self, n: int) -> slice:
+        """This block's rows of ``n``."""
+        per = n // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+    def sum_(self, t):
+        """``t`` summed over the blocks, in place; every rank ends with the
+        same values."""
+        for g in self.groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    def gather(self, t):
+        """(size, *t.shape): every block's ``t``, in block order."""
+        out = t[None]
+        for g in reversed(self.groups):                # minor axis first
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, out.contiguous(), group=g)
+            out = torch.cat(parts)
+        return out
+
+
+def dp_block(mesh, batch: int):
+    """The ``DpBlock`` this rank holds of a global batch of ``batch`` rows
+    on ``mesh``, or None where every rank keeps the whole batch: no mesh,
+    a ``ShapeMesh`` (one process holds every shard), or a batch that the
+    dp size does not divide (``_fits``, as ``constrain``'s rule: dp size 1
+    included)."""
+    if mesh is None or isinstance(mesh, ShapeMesh):
+        return None
+    dp = dp_axes(mesh)
+    if not _fits(batch, mesh, dp):
+        return None
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index = 0
+    for a in dp:
+        index = index * axis_size(mesh, a) + coord[a]
+    return DpBlock(index, axis_size(mesh, dp),
+                   tuple(mesh.get_group(a) for a in dp
+                         if axis_size(mesh, a) > 1))
+
+
+def current_dp_block():
+    """The ``DpBlock`` the running step computes, or None (the whole
+    batch)."""
+    return getattr(_CTX, "dp_block", None)
+
+
+@contextlib.contextmanager
+def use_dp_block(block):
+    """Run the model on ``block`` of the global batch: its losses are this
+    rank's shares of the global ones (``transformer.softmax_xent``, the
+    MoE's aux), its MoE capacity and drops the global ones
+    (``moe._moe_tokens``). None: the whole batch."""
+    prev = getattr(_CTX, "dp_block", None)
+    _CTX.dp_block = block
+    try:
+        yield
+    finally:
+        _CTX.dp_block = prev
 
 
 def spec(*entries) -> tuple:

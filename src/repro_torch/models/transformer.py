@@ -17,7 +17,10 @@ and writes every cache in place. ``forward`` runs under
 autograd Functions, and ``cfg.remat`` wraps each repeat's blocks (and each
 encoder layer) in ``torch.utils.checkpoint``, as the reference wraps its
 scan bodies in ``jax.checkpoint``. ``constrain`` sits where the
-reference's does (a no-op on the port's plain tensors), and a MoE block
+reference's does (a no-op on the port's plain tensors); under a mesh the
+train step runs ``train_loss`` on this rank's block of the batch's rows
+(``sharding.use_dp_block``), where the losses are this rank's shares of
+the global ones. A MoE block
 takes the expert-parallel route (``moe_ffn_ep_sharded``, which trains with
 the bf16 exchange and refuses the int8 one under autograd) under the
 reference's condition: ``moe_impl == "ep"`` and a ``use_mesh`` mesh in the
@@ -37,7 +40,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.sharding import (axis_size, constrain,
-                                         current_layout, current_mesh)
+                                         current_dp_block, current_layout,
+                                         current_mesh, use_dp_block,
+                                         use_mesh)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -356,9 +361,17 @@ def _unstack(tree, n: int) -> list:
 
 def _remat(cfg, fn, *args):
     """``fn(*args)``, under activation checkpointing when ``cfg.remat`` and
-    autograd records (the reference remats only outside decode)."""
+    autograd records (the reference remats only outside decode). The
+    recompute runs in the backward, on autograd's thread for the device,
+    so it re-enters the mesh, layout and dp block of the forward."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh, layout, block = current_mesh(), current_layout(), \
+            current_dp_block()
+
+        def again(*a):
+            with use_mesh(mesh, layout), use_dp_block(block):
+                return fn(*a)
+        return checkpoint(again, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -475,7 +488,10 @@ def forward(params, cfg, batch, *, caches=None, t=None, moe_group: int = 0,
 # ===================================================================== #
 def softmax_xent(logits, labels, mask, impl: str = "gather"):
     """Mean negative log-likelihood over ``mask``; labels < 0 are clipped
-    to 0 before the lookup (and masked out by the caller)."""
+    to 0 before the lookup (and masked out by the caller). Under a
+    ``DpBlock`` (``sharding.use_dp_block``) this rank's share of the global
+    mean: its masked sum over the global mask count (one all-reduce of a
+    scalar, which carries no gradient)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     lab = labels.clamp(min=0).long()
@@ -485,7 +501,11 @@ def softmax_xent(logits, labels, mask, impl: str = "gather"):
     else:
         ll = torch.gather(lf, -1, lab[..., None])[..., 0]
     nll = (lse - ll) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    block = current_dp_block()
+    if block is not None:
+        block.sum_(count)
+    return nll.sum() / torch.clamp(count, min=1.0)
 
 
 def _mtp_loss(params, cfg, h_final, tokens, labels, mask):
@@ -511,7 +531,10 @@ def train_loss(params, cfg, batch, *, moe_group: int = 0):
     """batch: tokens (B,S), labels (B,S) (-1 = masked), + frontend stubs.
     Returns (loss, metrics) as the reference's. Called with autograd on,
     the loss carries the graph to every parameter leaf that requires a
-    gradient (``repro_torch.launch.steps.make_train_step``)."""
+    gradient (``repro_torch.launch.steps.make_train_step``). Under a
+    ``DpBlock`` the batch is this rank's block of the global one, and the
+    loss and each metric are this rank's shares: summed over the blocks
+    they are the reference's values over the global batch."""
     labels = batch["labels"]
     mask = (labels >= 0).float()
     logits, _, aux, h = _forward(params, cfg, batch, moe_group=moe_group,

@@ -798,3 +798,50 @@ def test_deepseek_gradients_repeat_bit_for_bit(cuda):
     finally:
         if own:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-v2-236b"])
+def test_train_step_on_a_one_rank_mesh_equals_no_mesh(cuda, arch):
+    """``make_train_step`` under the (1, 1) mesh of a one-rank NCCL group
+    (``make_host_mesh(1)``) against the step with no mesh, three steps of
+    the reduced arch in bf16 from the same init: at world size 1 the dp
+    block is the whole batch and nothing is exchanged, so the losses,
+    params and moments are equal bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config(arch))
+    opt = adamw.OptConfig(warmup_steps=1)
+    batches = [{k: torch.from_numpy(v).to(cuda)
+                for k, v in make_batch(cfg, 4, 64, step=i).items()}
+               for i in range(3)]
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.shape == (1, 1)
+        runs = []
+        for on in (None, mesh):
+            params = T.init_params(cfg, torch.Generator(
+                device=cuda).manual_seed(0), device=cuda)
+            state = adamw.init(opt, params)
+            step = make_train_step(cfg, opt)
+            losses = []
+            with SH.use_mesh(on):
+                for batch in batches:
+                    params, state, m = step(params, state, batch)
+                    losses.append(m["loss"])
+            leaves = []
+            T._tree_map(leaves.append, {"p": params, "mu": state["mu"],
+                                        "nu": state["nu"]})
+            runs.append((torch.stack(losses), leaves))
+    finally:
+        if own:
+            dist.destroy_process_group()
+    (want_loss, want), (got_loss, got) = runs
+    assert torch.equal(got_loss, want_loss)
+    assert len(got) == len(want) > 20
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
