@@ -343,6 +343,31 @@ def lru_bytes(b: int, s: int, w: int, in_bytes: int, reads: int = 1) -> int:
     return reads * 2 * in_bytes * n + 4 * n + 4 * b * w
 
 
+def sp_exchange_bytes(kind: str, b: int, s: int, m: int, width: int,
+                      d: int = 0, elt: int = 2) -> int:
+    """Bytes one rank of ``m`` sends over ``model`` in one layer's forward
+    of the split train step at (b, s) tokens, from the shapes (the
+    backward sends as much again: each collective's transpose). "attn":
+    the gather of attention's (b, s/m, ``width``) input (MLA's latents
+    where ``width`` != ``d``) and the reduce-scatter of its (b, s, ``d``)
+    partial sums. "rwkv6": the all-to-alls of r, k, v (``elt`` bytes) and
+    w_log and back of the WKV output (f32), ``width`` = D, and the time
+    and channel mixes' one-row halos. "rglru": the all-to-alls of x and
+    a_log and back of h (f32), ``width`` = W, and the conv's 3-row halo.
+    A gather or reduce-scatter sends m - 1 blocks of b s/m rows, an
+    all-to-all (m - 1)/m of the rank's tensor, a halo's gather m - 1
+    copies of its rows."""
+    rows = b * s // m
+    if kind == "attn":
+        return (m - 1) * rows * (width + (d or width)) * elt
+    if kind == "rwkv6":
+        return (m - 1) * rows * width * (3 * elt + 4 + 4) // m \
+            + 2 * (m - 1) * b * width * elt
+    if kind == "rglru":
+        return (m - 1) * rows * width * 3 * 4 // m \
+            + (m - 1) * b * 3 * width * elt
+    raise ValueError(kind)
+
 def trace_report(trace) -> dict:
     """From K2's trace rows (SM, start ns, end ns, op): the share of stream
     CTAs' time during which a matmul CTA ran on the same SM (``share``), the
@@ -593,6 +618,28 @@ def drain_report(torch, srv, twin, res, res_twin, slices, label: str,
 K3_TRAIN = (1, 4096, 32, 96)
 K4_TRAIN = (1, 2048, 32, 64)
 K5_TRAIN = (1, 2048, 4096)
+# phase 2g: the shapes one rank of a (1, 4) mesh hands K3, K4 and K5 on the
+# split train step (``sharding.seq_block``: the whole sequence of its
+# quarter of the heads or channels), at full width: (row key prefix, (B, S,
+# heads or channels of the whole tensor, D), dtypes). phi3-mini's 32 heads
+# at TRAIN_4K's length, DeepSeek-V2's MLA 128 heads at q.k dim 192 (v
+# padded from 128) at 2048, rwkv6-1.6b's 32 heads of 64 at 2048,
+# recurrentgemma-9b's 4096 channels at 2048. Each input is rank 1's quarter
+# sliced out of a full-width tensor, a view with the whole tensor's strides
+SHARD_M, SHARD_RANK = 4, 1
+SHARD_K3 = (("shard_d96_", (1, 4096, 32, 96), 96),
+            ("shard_d192_", (1, 2048, 128, 192), 128))
+SHARD_K4 = (1, 2048, 32, 64)
+SHARD_K5 = (1, 2048, 4096)
+# what a rank of the (1, 4) mesh sends over 'model' a layer at those
+# shapes, bf16 activations: (label, kind, (B, S), gathered width, D)
+SHARD_EXCHANGES = (
+    ("phi3-mini-3.8b attn", "attn", (1, 4096), 3072, 3072),
+    ("deepseek-v2-236b MLA attn (latents 1536 + 512 + 64)", "attn",
+     (1, 2048), 2112, 5120),
+    ("rwkv6-1.6b time + channel mix", "rwkv6", (1, 2048), 2048, 0),
+    ("recurrentgemma-9b RG-LRU", "rglru", (1, 2048), 4096, 0),
+    ("recurrentgemma-9b local MQA", "attn", (1, 2048), 4096, 4096))
 # a bf16 gradient against autograd through an independent f32 plain
 # version (the full S x S attention, the sequential recurrences): 5e-2 of
 # max(1, the gradient's largest entry), i.e. 5e-2 abs on unit-scale
@@ -646,6 +693,49 @@ def adamw_bytes(params, state) -> int:
         + 2 * nbytes(state["nu"])
 
 
+def check_function(torch, ops, randn, case):
+    """One kernel through its autograd Function on ``case["args"]``: the
+    forward is the kernel's output bit for bit and launches it once, the
+    backward launches none of the port's kernels, and each input's
+    gradient is finite and equals autograd through the f32 plain version
+    (``GRAD_TOL``, ``GRAD_REL_TOL``). Returns ([(abs, norm-relative) error
+    an input], forward ms, backward ms), the times from CUDA events over 3
+    calls."""
+    name, args = case["name"], case["args"]
+    leaves = [t.detach().requires_grad_() for t in args]
+    cot = [randn(o.shape, torch.float32).to(o.dtype)
+           for o in case["kernel"](*args)]
+    ops.reset_launches()
+    outs = case["fn"](*leaves)
+    fwd_launches = dict(ops.LAUNCHES)
+    grads = torch.autograd.grad(outs, leaves, cot)
+    torch.cuda.synchronize()
+    assert fwd_launches[name] == 1 and sum(fwd_launches.values()) == 1, \
+        (name, fwd_launches)
+    assert ops.LAUNCHES == fwd_launches, \
+        f"{name}: the backward launched a kernel: {ops.LAUNCHES}"
+    with torch.no_grad():
+        direct = case["kernel"](*args)
+    for o, want in zip(outs, direct):
+        assert torch.equal(o.detach(), want), \
+            f"{name}: the Function's forward is not the kernel's output"
+    f32 = [t.detach().float().requires_grad_() for t in args]
+    want = torch.autograd.grad(case["plain"](*f32), f32,
+                               [c.float() for c in cot])
+    errs = []
+    for i, (g, wg) in enumerate(zip(grads, want)):
+        assert bool(torch.isfinite(g).all()), (name, i)
+        e_abs, e_rel = grad_errs(g, wg)
+        assert e_abs <= GRAD_TOL and e_rel <= GRAD_REL_TOL, \
+            (name, i, e_abs, e_rel)
+        errs.append((e_abs, e_rel))
+    del outs, grads, want, f32, direct
+    fwd_ms = time_ms(torch, lambda: case["fn"](*leaves), 3)
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        case["fn"](*leaves), leaves, cot), 3)
+    return errs, fwd_ms, both_ms - fwd_ms
+
+
 def autograd_phase(torch, ops, ref, A, R, randn, rows) -> None:
     """Phase 2f: K3, K4 and K5 through their autograd Functions at the
     training shapes. The forward is the kernel's output bit for bit and
@@ -693,38 +783,8 @@ def autograd_phase(torch, ops, ref, A, R, randn, rows) -> None:
         plain_name="the sequential f32 recurrence")
     for case in (k3, k4_case, k5):
         name, args = case["name"], case["args"]
-        leaves = [t.detach().requires_grad_() for t in args]
-        cot = [randn(o.shape, torch.float32).to(o.dtype)
-               for o in case["kernel"](*args)]
-        ops.reset_launches()
-        outs = case["fn"](*leaves)
-        fwd_launches = dict(ops.LAUNCHES)
-        grads = torch.autograd.grad(outs, leaves, cot)
-        torch.cuda.synchronize()
-        assert fwd_launches[name] == 1 and sum(fwd_launches.values()) == 1, \
-            (name, fwd_launches)
-        assert ops.LAUNCHES == fwd_launches, \
-            f"{name}: the backward launched a kernel: {ops.LAUNCHES}"
-        with torch.no_grad():
-            direct = case["kernel"](*args)
-        for o, want in zip(outs, direct):
-            assert torch.equal(o.detach(), want), \
-                f"{name}: the Function's forward is not the kernel's output"
-        f32 = [t.detach().float().requires_grad_() for t in args]
-        want = torch.autograd.grad(case["plain"](*f32), f32,
-                                   [c.float() for c in cot])
-        errs = []
-        for i, (g, wg) in enumerate(zip(grads, want)):
-            assert bool(torch.isfinite(g).all()), (name, i)
-            e_abs, e_rel = grad_errs(g, wg)
-            assert e_abs <= GRAD_TOL and e_rel <= GRAD_REL_TOL, \
-                (name, i, e_abs, e_rel)
-            errs.append((e_abs, e_rel))
-        del outs, grads, want, f32, direct
-        fwd_ms = time_ms(torch, lambda: case["fn"](*leaves), 3)
-        both_ms = time_ms(torch, lambda: torch.autograd.grad(
-            case["fn"](*leaves), leaves, cot), 3)
-        rows[name].update(train_fwd_ms=fwd_ms, train_bwd_ms=both_ms - fwd_ms,
+        errs, fwd_ms, bwd_ms = check_function(torch, ops, randn, case)
+        rows[name].update(train_fwd_ms=fwd_ms, train_bwd_ms=bwd_ms,
                           train_grad_err=max(e for e, _ in errs))
         log(f"[2f {name}] {tuple(args[0].shape)} {case['dtype']} through "
             f"its autograd Function: forward = the kernel's output bit for "
@@ -734,11 +794,121 @@ def autograd_phase(torch, ops, ref, A, R, randn, rows) -> None:
             + ", ".join(f"{e:.3e}" for e, _ in errs) + " (tol "
             f"{GRAD_TOL:g}), norm-relative " + ", ".join(
                 f"{r:.3e}" for _, r in errs) + f" (tol {GRAD_REL_TOL:g}); "
-            f"forward {fwd_ms:.3f} ms, backward {both_ms - fwd_ms:.3f} ms "
+            f"forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
             f"(CUDA events, mean of 3)")
-        del leaves, cot, case, args
+        del args, case
     del q, k, v, r4, k4, v4, w4, u4, s4, x5, a5, h5
     torch.cuda.empty_cache()
+
+
+def shard_phase(torch, ops, ref, A, R, randn, rows) -> None:
+    """Phase 2g: K3, K4 and K5 through their autograd Functions at a (1, 4)
+    rank's shard shapes (``SHARD_K3``, ``SHARD_K4``, ``SHARD_K5``), each
+    input a strided quarter of a full-width tensor: the forward against the
+    plain version at the kernel's tolerance, and ``check_function``'s
+    launches and gradients. Times the kernel alone (CUDA events; K5 queued
+    behind a spin, as phase 2e), the Function's forward and backward, and
+    the kernel's bound at the shard's shape."""
+    def quarter(t, dim):
+        n = t.shape[dim] // SHARD_M
+        return t.narrow(dim, SHARD_RANK * n, n)
+
+    def bhsd(t):
+        return t.transpose(1, 2)
+
+    cases = []
+    for key, (b, s, h, d), dv in SHARD_K3:
+        q, k = (quarter(randn((b, s, h, d), torch.bfloat16), 2)
+                for _ in range(2))
+        v = A._pad_v(quarter(randn((b, s, h, dv), torch.bfloat16), 2), d)
+        shape = (b, h // SHARD_M, s, d)
+        flops, nbytes = k3_work(shape, True)
+        cases.append(dict(
+            key=key, name="flash_attention", args=(q, k, v), shape=shape,
+            dtype="bf16 q/k/v", tol=BF16_TOL, ms_fn=time_ms,
+            bound=bound(flops, nbytes, "bfloat16"),
+            fn=lambda q, k, v: (A.FlashAttention.apply(q, k, v, True),),
+            kernel=lambda q, k, v: (A._flash_fwd(q, k, v, causal=True),),
+            plain=lambda q, k, v: (bhsd(ref.flash_attention(
+                bhsd(q), bhsd(k), bhsd(v), causal=True)),),
+            plain_name="the full S x S f32 attention",
+            dense=lambda *ts: [bhsd(t).contiguous() for t in ts],
+            op=lambda q, k, v: ops.flash_attention(q, k, v, causal=True)))
+    b, s, h, n = SHARD_K4
+    r4, k4, v4 = (quarter(randn((b, s, h, n), torch.bfloat16), 2)
+                  for _ in range(3))
+    w4 = quarter(-torch.exp(randn((b, s, h, n), torch.float32) - 1.0), 2)
+    u4 = quarter(randn((h, n), torch.float32) * 0.1, 0)
+    s4 = torch.zeros(b, h // SHARD_M, n, n, device=u4.device)
+
+    def k4_kernel(r, k, v, w_log, u, state):
+        final = state.clone()
+        return ops.rwkv6_scan(r, k, v, w_log, u, state=final), final
+    products, other, nbytes = wkv6_work(b, s, h // SHARD_M, n, 2)
+    cases.append(dict(
+        key="shard_", name="rwkv6_scan", args=(r4, k4, v4, w4, u4, s4),
+        shape=tuple(r4.shape), dtype="bf16 r/k/v, f32 w_log/u/state",
+        tol=K4_TOL["bfloat16"], ms_fn=time_ms,
+        bound=wkv6_bound_ms(products, other, nbytes),
+        fn=lambda *xs: R.WKV6.apply(*xs, 32), kernel=k4_kernel,
+        plain=ref.rwkv6, plain_name="the sequential f32 recurrence"))
+    b, s, w = SHARD_K5
+    for dt, key in ((torch.bfloat16, "shard_bf16_"),
+                    (torch.float32, "shard_f32_")):
+        x5 = quarter(randn((b, s, w), torch.float32).to(dt), 2)
+        a5 = quarter((-torch.exp(randn((b, s, w), torch.float32) - 4.0))
+                     .to(dt), 2)
+        h5 = torch.zeros(b, w // SHARD_M, device=x5.device)
+        elt = x5.element_size()
+        cases.append(dict(
+            key=key, name="rg_lru", args=(x5, a5, h5), shape=tuple(x5.shape),
+            dtype=f"{str(dt)[6:]} x/a_log, f32 h0", tol=K5_TOL,
+            ms_fn=queued_ms,
+            bound=bound(9.0 * x5.numel(), lru_bytes(b, s, w // SHARD_M, elt),
+                        "float32"),
+            fn=lambda x, a, h0: (R.RGLRU.apply(x, a, h0),),
+            kernel=lambda x, a, h0: (ops.rg_lru(
+                x, a, chunk=x.shape[1], bw=x.shape[2], h0=h0),),
+            plain=lambda x, a, h0: (ref.rg_lru(x, a, h0),),
+            plain_name="the sequential f32 recurrence"))
+    for case in cases:
+        name, args = case["name"], case["args"]
+        assert not all(t.is_contiguous() for t in args[:3]), name
+        dense = case.get("dense", lambda *ts: [t.contiguous() for t in ts])(
+            *args)
+        op = case.get("op", case["kernel"])
+        with torch.no_grad():
+            got = case["kernel"](*args)[0]
+            want = case["plain"](*(t.float() for t in args))[0]
+        err = max_err(torch, got, want, case["tol"])
+        del got, want
+        errs, fwd_ms, bwd_ms = check_function(torch, ops, randn, case)
+        ms = case["ms_fn"](torch, lambda: op(*dense), 10)
+        b_ms, b_by = case["bound"]
+        rows[name].update({f"{case['key']}ms": ms,
+                           f"{case['key']}bound_ms": b_ms,
+                           f"{case['key']}err": err,
+                           f"{case['key']}fwd_ms": fwd_ms,
+                           f"{case['key']}bwd_ms": bwd_ms})
+        log(f"[2g {name}] rank {SHARD_RANK} of {SHARD_M}: {case['shape']} "
+            f"{case['dtype']}, strided slices of the full-width tensors: "
+            f"kernel {ms:.4f} ms on them copied whole (CUDA events, mean of "
+            f"10{', queued' if case['ms_fn'] is queued_ms else ''}), bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; against "
+            f"{case['plain_name']} max err {err:.3e}; through its autograd "
+            f"Function 1 launch forward, 0 backward, gradients of "
+            f"{len(errs)} inputs max abs err / max(1, max|grad|) "
+            + ", ".join(f"{e:.3e}" for e, _ in errs) + ", norm-relative "
+            + ", ".join(f"{r:.3e}" for _, r in errs) + f"; forward "
+            f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms")
+        del args, case, dense, op
+    del cases, r4, k4, v4, w4, u4, s4, x5, a5, h5
+    torch.cuda.empty_cache()
+    for label, kind, (b, s), width, d in SHARD_EXCHANGES:
+        log(f"[2g exchange] {label} at {b} x {s}, m = {SHARD_M}: "
+            f"{sp_exchange_bytes(kind, b, s, SHARD_M, width, d) / 1e6:.2f} MB "
+            f"sent by a rank over 'model' a layer's forward, counted from "
+            f"the shapes (as much again in the backward)")
 
 
 def training_phase(torch, dev, card) -> dict:
@@ -1032,7 +1202,7 @@ def _drop_counter(torch, M, seen):
     the first call's input and weights (the first MoE layer's)."""
     real = M._moe_tokens
 
-    def counted(x2d, p, cfg, *block):
+    def counted(x2d, p, cfg, *block, **kw):
         seen.setdefault("first", (x2d, p))
         m = cfg.moe
         _, top_i, _ = M._route(x2d, p["router"], m)
@@ -1042,7 +1212,7 @@ def _drop_counter(torch, M, seen):
         seen["dropped"] = seen["dropped"] + (load - cap).clamp(min=0).sum()
         seen["max_load"] = torch.maximum(seen["max_load"], load.max())
         seen["groups"].append((int(x2d.shape[0]), cap))
-        return real(x2d, p, cfg, *block)
+        return real(x2d, p, cfg, *block, **kw)
     return real, counted
 
 
@@ -2120,6 +2290,9 @@ def main() -> int:
     # ---- phase 2f: K3, K4 and K5 through their autograd Functions ---------
     autograd_phase(torch, ops, ref, A, R, randn, rows)
 
+    # ---- phase 2g: K3, K4 and K5 at a (1, 4) rank's shard shapes ---------
+    shard_phase(torch, ops, ref, A, R, randn, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -2614,7 +2787,8 @@ def main() -> int:
                            if k in row},
                         **{k: v for k, v in row.items()
                            if k.startswith(("d80_", "d160_", "d192_", "d128_",
-                                            "d64_", "d48_", "train_"))}})
+                                            "d64_", "d48_", "train_",
+                                            "shard_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

@@ -2,7 +2,7 @@
 ``repro/kernels/ops.py``.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
-raises; a CPU tensor goes to the plain version: ``ref`` for K1-K3, and for
+raises (K3, K4 and K5 take strided slices, copied whole first); a CPU tensor goes to the plain version: ``ref`` for K1-K3, and for
 K4 and K5 the model's own chunked and scanned forms in
 ``repro_torch.models.recurrent``. A meta tensor (the dry run's, shapes and
 no data) goes to the plain version too: no kernel can run on it. Nothing
@@ -30,6 +30,13 @@ def _on_cpu(t) -> bool:
     return t.device.type in ("cpu", "meta")
 
 
+def _dense(*ts):
+    """The tensors as the kernels read them, row-major and whole: a
+    strided slice (a projection's heads or channels) is copied, a whole
+    tensor passed as it is."""
+    return tuple(t.contiguous() for t in ts)
+
+
 def sliced_matmul(a, b, *, slice_size: int = 4, bm: int = 128,
                   bn: int = 128, bk: int = 128):
     _sm.check_shapes(a, b, bm, bn, bk)
@@ -53,7 +60,7 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     _fa.check_shapes(q, k, v, bq, bk)
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _fa.flash_attention(*_dense(q, k, v), causal=causal)
 
 
 def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):
@@ -71,7 +78,7 @@ def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):
         if state is not None:
             state.copy_(final)
         return out
-    return _wkv.rwkv6_scan(r, k, v, w_log, u, state=state)
+    return _wkv.rwkv6_scan(*_dense(r, k, v, w_log, u), state=state)
 
 
 def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
@@ -84,4 +91,5 @@ def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
         if h0 is None:
             h0 = torch.zeros(x.shape[0], x.shape[2], device=x.device)
         return rglru_scan(x.float(), a_log.float(), h0.float())[0]
-    return _lru.rg_lru(x, a_log, h0=h0)
+    return _lru.rg_lru(*_dense(x, a_log), h0=h0 if h0 is None else
+                       h0.contiguous())

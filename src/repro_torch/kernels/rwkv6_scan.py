@@ -88,7 +88,7 @@ def widen_and_pad(r, k, v, w_log, u, state=None):
             or r.dtype not in (torch.float32, torch.bfloat16)):
         r, k, v = r.float(), k.float(), v.float()
     w_log, u = w_log.float(), u.float()
-    state = None if state is None else state.float()
+    state = None if state is None else state.float().contiguous()
     if np_ != n:
         pad = (0, np_ - n)
         r, k, v, w_log, u = (torch.nn.functional.pad(t, pad)

@@ -7,15 +7,17 @@ card) and applies ``adamw.update``, which writes the parameters and moments
 in place. ``moe_group`` > 0 routes each MoE block's tokens in groups of
 that many, as the reference's step passes it to ``moe_ffn(group_size=)``.
 
-Under a ``use_mesh`` mesh whose dp size divides the batch, the step takes
-the global batch, as the reference's does, and computes only this rank's
-block of its rows (``sharding.dp_block``): the loss is this rank's share
-of the global one, and the gradients are summed over the dp axes before
-the update, one all-reduce of a flat buffer a dtype. So every rank ends
-the step with the same parameters, moments and metrics (the global loss),
-and the reference's values. Otherwise (no mesh, dp size 1, a batch the dp
-size does not divide) every rank runs the whole batch and nothing is
-exchanged.
+Under a ``use_mesh`` mesh the step takes the global batch, as the
+reference's does, and computes only this rank's token block of it
+(``sharding.token_block``): its rows over the dp axes where the dp size
+divides B, and its 1/m of the sequence where ``model``'s size m divides S
+(the ``2d`` layout). The loss is this rank's share of the global one, and
+the gradients are summed over the blocks before the update, one
+all-reduce of a flat buffer a dtype over each axis that splits the batch.
+So every rank ends the step with the same parameters, moments and metrics
+(the global loss), and the reference's values. Where neither splits (no
+mesh, a (1, 1) mesh, sizes that do not divide) every rank runs the whole
+batch and nothing is exchanged.
 """
 from __future__ import annotations
 
@@ -26,8 +28,31 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
 
+def _cut(block, batch, mtp: bool):
+    """``block``'s part of the global ``batch``: the rows of every entry;
+    the sequence block of the (B, S) ones; of the patch prefix, its part
+    inside the sequence block; Whisper's audio whole. With ``mtp`` the
+    next tokens and labels (``transformer.next_targets``) are taken from
+    the global batch first, so a block's last position sees the next
+    block's first."""
+    b, s = batch["tokens"].shape
+    if mtp and block.seq_group is not None:
+        batch = dict(batch, **T.next_targets(batch["tokens"],
+                                             batch["labels"]))
+    rows, seq = block.rows(b), block.share(s)
+    out = {}
+    for k, v in batch.items():
+        v = v[rows]
+        if k == "patches":
+            v = v[:, seq.start:min(seq.stop, v.shape[1])]
+        elif k != "audio":
+            v = v[:, seq]
+        out[k] = v
+    return out
+
+
 def _sum_over_blocks(block, tensors):
-    """``tensors`` summed over the dp blocks: packed in order into one
+    """``tensors`` summed over the blocks: packed in order into one
     flat buffer a dtype, each all-reduced, and split back into views."""
     by_dtype = {}
     for i, t in enumerate(tensors):
@@ -43,10 +68,9 @@ def _sum_over_blocks(block, tensors):
 
 def make_train_step(cfg, opt_cfg, *, moe_group: int = 0):
     def train_step(params, opt_state, batch):
-        block = SH.dp_block(SH.current_mesh(), batch["tokens"].shape[0])
+        block = SH.token_block(SH.current_mesh(), *batch["tokens"].shape)
         if block is not None:
-            rows = block.rows(batch["tokens"].shape[0])
-            batch = {k: v[rows] for k, v in batch.items()}
+            batch = _cut(block, batch, cfg.mtp)
         # leaves of the graph that share the parameters' storage, so the
         # caller's tensors never require a gradient
         live = T._tree_map(lambda p: p.detach().requires_grad_(), params)

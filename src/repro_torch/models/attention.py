@@ -29,15 +29,26 @@ A prompt of more than one token written into a cache at t > 0 raises
 While autograd records (training), K3 runs inside ``FlashAttention``:
 its forward is the kernel, its backward autograd through
 ``plain_attention``, the form the reference trains through.
+
+On the train step's sequence block (``sharding.seq_block``) a block with
+no cache gathers the sequence over ``model``, projects only this rank's
+heads (``Heads``; MLA's latents are gathered instead of x), attends over
+the whole sequence, so the causal mask needs no offset, and its output
+projection's partial sum is reduce-scattered back to the sequence block.
+Where ``model`` does not divide the heads every rank computes all of them
+and keeps its block; where it divides the q heads but not the kv heads,
+every kv head is projected and each of this rank's q heads takes its own.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, seq_block
 
 NEG_INF = -1e30
 
@@ -236,23 +247,79 @@ def _flash_fwd(q, k, v, *, causal: bool):
 # --------------------------------------------------------------------- #
 # GQA block (projection + attention + output)
 # --------------------------------------------------------------------- #
+def _to_block(out, blk, split: bool):
+    """An attention block's output (B, S, D) over the whole sequence, back
+    on this rank's sequence block ``blk``: the sum of the ranks' partial
+    sums over their heads where the heads are ``split``, else this block
+    of the whole (None: as it is)."""
+    if blk is None:
+        return out
+    if split:
+        return blk.scatter_seq(out)
+    return out[:, blk.share(out.shape[1])]
+
+
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The projections of a GQA block that this rank computes: on a
+    sequence block ``blk`` where ``model`` divides the heads, this rank's
+    q heads (and ``wo``'s rows for them) and their kv heads, or every kv
+    head with ``kv_idx``, the kv head of each of this rank's q heads, where
+    it does not divide the kv heads; else all of them."""
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    blk: object = None
+    split: bool = False
+    kv_idx: torch.Tensor = None
+
+    @classmethod
+    def of(cls, p, cfg, blk):
+        hs = blk.share(cfg.num_heads) if blk is not None else None
+        if hs is None:
+            return cls(p["wq"], p["wk"], p["wv"], p["wo"], blk)
+        kvs = blk.share(cfg.num_kv_heads)
+        if kvs is not None:
+            return cls(p["wq"][:, hs], p["wk"][:, kvs], p["wv"][:, kvs],
+                       p["wo"][hs], blk, True)
+        g = cfg.num_heads // cfg.num_kv_heads
+        idx = torch.arange(hs.start, hs.stop, device=p["wq"].device) // g
+        return cls(p["wq"][:, hs], p["wk"], p["wv"], p["wo"][hs], blk, True,
+                   idx)
+
+    def kv(self, k, v):
+        """k, v (B, S, kv, hd) for this rank's q heads."""
+        if self.kv_idx is None:
+            return k, v
+        return k[:, :, self.kv_idx], v[:, :, self.kv_idx]
+
+    def to_block(self, out):
+        return _to_block(out, self.blk, self.split)
+
+
 def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
                 kv_source=None):
     """x: (B,S,D). cache: dict(k, v) of (B,Smax,kv,hd), updated in place,
     or None. ``kv_source`` (B,Skv,D) makes it cross-attention (Whisper's
     decoder): k/v are projected from it, no positions apply, and it attends
     with the plain ``full_attention``, as the reference does (K3 takes q,
-    k and v of one length). Returns (out, cache)."""
+    k and v of one length). Returns (out, cache). On a sequence block x
+    is this rank's block and ``positions`` the whole sequence's."""
+    blk = seq_block() if cache is None else None
+    if blk is not None:
+        x = blk.gather_seq(x)
     b, s, d = x.shape
     window = cfg.local_window if cfg.attention_kind == "local" else 0
     src = x if kv_source is None else kv_source
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    w = Heads.of(p, cfg, blk)
+    q = torch.einsum("bsd,dhk->bshk", x, w.wq)
+    k, v = w.kv(torch.einsum("bsd,dhk->bshk", src, w.wk),
+                torch.einsum("bsd,dhk->bshk", src, w.wv))
     q, k, v = _constrain_qkv(q, k, v)
     if kv_source is not None:
         o = full_attention(q, k, v, causal=False)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+        return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo)), cache
     q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
     k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
 
@@ -271,8 +338,7 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
         o = plain_attention(q, k, v, causal=causal, window=window)
     else:
         o = _flash(q, k, v, causal=causal)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, cache
+    return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo)), cache
 
 
 def _check_prompt_at(s: int, t) -> None:
@@ -320,19 +386,29 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     ``ops.flash_attention`` at the q.k dim, v padded to it. A decode step
     attends over the cache's first t + 1 rows: in the latent space under
     ``mla_decode="absorbed"`` (the reference's default), or over K/V
-    expanded from the cached latents under ``"expand"``."""
+    expanded from the cached latents under ``"expand"``.
+
+    On a sequence block (no cache) the latents of this rank's positions
+    are gathered over ``model`` and this rank's heads expanded from them."""
     m = cfg.mla
-    b, s, d = x.shape
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    blk = seq_block() if cache is None else None
+    q_lat = L.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"])
+    kv_a = x @ p["wkv_a"]                                    # (B,S,r+dr)
+    if blk is not None:
+        both = blk.gather_seq(torch.cat([q_lat, kv_a], dim=-1))
+        q_lat, kv_a = both.split([q_lat.shape[-1], kv_a.shape[-1]], dim=-1)
+    hs = blk.share(cfg.num_heads) if blk is not None else None
+    wq_b, wkv_b, wo = ((p["wq_b"], p["wkv_b"], p["wo"]) if hs is None else
+                       (p["wq_b"][:, hs], p["wkv_b"][:, hs], p["wo"][hs]))
+    b, s, _ = kv_a.shape
 
     # queries
-    q_lat = L.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"])
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])     # (B,S,H,dn+dr)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, wq_b)           # (B,S,H,dn+dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
 
     # latent kv
-    kv_a = x @ p["wkv_a"]                                    # (B,S,r+dr)
     c_kv = L.rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"]["scale"])
     k_rope = L.apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :],
                           positions, cfg.rope_theta)[:, :, 0, :]
@@ -349,7 +425,7 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
             return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
     # expand k/v from the latents
-    kv = torch.einsum("bsr,rhk->bshk", c_kv.to(x.dtype), p["wkv_b"])
+    kv = torch.einsum("bsr,rhk->bshk", c_kv.to(x.dtype), wkv_b)
     k_nope, vv = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, k_rope.to(x.dtype)[:, :, None, :].expand(
         *k_nope.shape[:-1], dr)], dim=-1)
@@ -359,7 +435,8 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
         o = decode_attention(qq, k, _pad_v(vv, dn + dr), t + 1)[..., :dv]
     else:
         o = _flash(qq, k, _pad_v(vv, dn + dr), causal=causal)[..., :dv]
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+    return _to_block(torch.einsum("bshk,hkd->bsd", o, wo), blk,
+                     hs is not None), cache
 
 
 def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype):

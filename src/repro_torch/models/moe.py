@@ -8,11 +8,12 @@ into their tokens in a fixed order (``_combine``). Pairs past an expert's
 capacity are dropped; which ones depends on the sort order, so the sort is
 stable, as ``jnp.argsort`` is.
 
-Under a dp block (the train step's, ``sharding.use_dp_block``) x is this
-rank's block of the global batch, and the route keeps the reference's
-global semantics: the capacity of the global tokens, the drops of the
-global sort (one all-gather of the E expert counts), and the aux as this
-rank's share of the global one.
+Under a token block (the train step's, ``sharding.use_dp_block``) x is
+this rank's block of the global batch's rows and, on a sequence block, of
+its positions, and the route keeps the reference's global semantics: the
+capacity of the global tokens, the drops of the global sort in row-major
+(row, position) order (one all-gather of each row's E expert counts),
+and the aux as this rank's share of the global one.
 
 The expert products are plain batched einsums, which the reference leaves
 to XLA outside any Pallas kernel. They touch every expert's weights
@@ -24,7 +25,8 @@ shard with a static per-shard capacity, sent with ``all_to_all_single``
 over the mesh's ``model`` group (rows as int8 with f32 row scales under
 ``a2a_dtype="int8"``), bucketed by local expert, computed and sent back.
 ``moe_ffn_ep_sharded`` is the ``shard_map`` around it: global tokens in
-and out. Both run on ``_ep_shards``, which carries a leading dim of shards;
+and out; ``moe_ffn_ep_block`` takes a sequence block's tokens as the shard
+they are. All run on ``_ep_shards``, which carries a leading dim of shards;
 a rank holds one, and on a ``ShapeMesh`` (the dry run, no process group)
 one process holds every shard and the all-to-all is a transpose of the
 shard and block dims, the same exchange without a network. On ranks the
@@ -127,13 +129,31 @@ def _bucketed_expert_compute(xs, seg, pos_in_seg, num_experts, capacity,
     return y[seg, slot] * keep[:, None].to(y.dtype)            # (N, D)
 
 
-def _moe_tokens(x2d, p, cfg, block=None):
-    """x2d (T, D) routed as one group. Under a ``DpBlock`` the group is the
-    global tokens, of which x2d is this rank's block: the capacity comes
-    from the global count, and a pair's place in its expert's bucket is its
-    place in global token order (the counts of the blocks before this one,
-    plus its place here), so every rank keeps exactly the pairs the one
-    global sort keeps, and buckets and computes only its own."""
+def _place(counts, every, block, rows: int):
+    """The number of pairs of each expert before each of this block's rows
+    in global (row, position) order, less those of the block's own
+    earlier rows: (rows, E). ``counts`` (rows, E) are this block's counts a
+    row, ``every`` (n_blocks, rows, E) every block's."""
+    e = counts.shape[-1]
+    every = every.reshape(block.size, block.seq_size, rows, e) \
+        .transpose(1, 2).reshape(block.size * rows, block.seq_size, e)
+    total = every.sum(1)                                       # a global row
+    before_row = torch.cumsum(total, 0) - total
+    before_seq = torch.cumsum(every, 1) - every
+    mine = torch.arange(rows, device=counts.device) + block.index * rows
+    return before_row[mine] + before_seq[mine, block.seq_index] - \
+        (torch.cumsum(counts, 0) - counts)
+
+
+def _moe_tokens(x2d, p, cfg, block=None, rows: int = 1):
+    """x2d (T, D), ``rows`` rows of tokens, routed as one group. Under a
+    ``TokenBlock`` the group is the global tokens, of which x2d is this
+    rank's block: the capacity comes from the global count, and a pair's
+    place in its expert's bucket is its place in global (row, position)
+    order (the pairs of its expert in the rows before its row and in its
+    row before this block, from every block's counts a row, plus its place
+    here), so every rank keeps exactly the pairs the one global sort keeps,
+    and buckets and computes only its own."""
     m = cfg.moe
     t, d = x2d.shape
     k = m.top_k
@@ -148,9 +168,10 @@ def _moe_tokens(x2d, p, cfg, block=None):
         # frac from the global counts (they carry no gradient), probs_mean
         # this block's score sum over the global token count: the shares
         # and their gradients sum over the blocks to the global aux's
-        every = block.gather(counts)
-        t_all = t * block.size
-        aux = _balance_aux(scores.sum(0) / t_all, every.sum(0), m)
+        by_row = _counts(top_i.reshape(rows, -1), m.num_experts)
+        every = block.gather(by_row)
+        t_all = t * block.n_blocks
+        aux = _balance_aux(scores.sum(0) / t_all, every.sum((0, 1)), m)
     capacity = max(int(np.ceil(t_all * k / m.num_experts
                                * m.capacity_factor)), 4)
     sort_idx = torch.argsort(flat_e, stable=True)
@@ -160,15 +181,15 @@ def _moe_tokens(x2d, p, cfg, block=None):
     starts = torch.cumsum(counts, 0) - counts
     pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
     if block is not None:
-        # kept: the pair's global place (the earlier blocks' pairs of its
-        # expert first) is within the capacity; bucketed at its place
-        # here, in buckets as deep as this rank's most kept pairs of one
-        # expert
-        before = every[:block.index].sum(0)
-        keep = pos_in_seg + before[seg] < capacity
+        # kept: the pair's global place is within the capacity; bucketed
+        # at its place here (the kept pairs of an expert are the first of
+        # its pairs here), in buckets as deep as this rank's most kept
+        # pairs of one expert
+        base = _place(by_row, every, block, rows)
+        keep = pos_in_seg + base[tok_idx // (t // rows), seg] < capacity
         pos_in_seg = torch.where(keep, pos_in_seg, t * k)
-        capacity = max(int((capacity - before).clamp(min=0)
-                           .minimum(counts).max()), 1)
+        kept = torch.zeros_like(counts).index_add_(0, seg, keep.long())
+        capacity = max(int(kept.max()), 1)
     ys = _bucketed_expert_compute(xs, seg, pos_in_seg, m.num_experts,
                                   capacity, p["wi"], p["wg"], p["wo"],
                                   cfg.act)
@@ -196,35 +217,38 @@ def moe_ffn(x, p, cfg, *, group_size: int = 0):
     the other (the reference's ``lax.scan``), each with its own capacity;
     the aux loss is the groups' mean.
 
-    Under a ``DpBlock`` (``sharding.use_dp_block``) x is this rank's block
-    of the global batch and the aux is its share of the global one. With
-    no groups the tokens route as one global group (``_moe_tokens``). A
-    group size that divides this rank's tokens makes this rank's groups a
-    block of the global ones, each routed alone, and the aux share this
-    rank's mean over the blocks; any other group size would route other
-    groups than the reference's, and raises."""
+    Under a ``TokenBlock`` (``sharding.use_dp_block``) x is this rank's
+    block of the global batch and the aux is its share of the global one.
+    With no groups the tokens route as one global group (``_moe_tokens``).
+    A group size that divides each run of this rank's tokens that is
+    contiguous in the global order (all of them, or on a sequence block a
+    row's) makes this rank's groups a block of the global ones, each
+    routed alone, and the aux share this rank's mean over the blocks; any
+    other group size would route other groups than the reference's, and
+    raises."""
     m = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
     t = x2d.shape[0]
     block = SH.current_dp_block()
-    t_all = t * (block.size if block is not None else 1)
+    t_all = t * (block.n_blocks if block is not None else 1)
     if group_size <= 0 or group_size >= t_all:
-        out, aux = _moe_tokens(x2d, p, cfg, block)
+        out, aux = _moe_tokens(x2d, p, cfg, block, rows=b)
     else:
         if t_all % group_size:
             raise ValueError(f"moe_ffn: {t_all} tokens do not divide into "
                              f"groups of {group_size}")
-        if t % group_size:
+        run = s if block is not None and block.seq_size > 1 else t
+        if run % group_size:
             raise ValueError(
-                f"moe_ffn: this rank's {t} of the batch's {t_all} tokens do "
-                f"not divide into groups of {group_size}, so its groups "
-                f"would not be the reference's")
+                f"moe_ffn: this rank's runs of {run} of the batch's {t_all} "
+                f"tokens do not divide into groups of {group_size}, so its "
+                f"groups would not be the reference's")
         outs, auxs = zip(*(_moe_tokens(xi, p, cfg)
                            for xi in x2d.split(group_size)))
         out, aux = torch.cat(outs), torch.stack(auxs).mean()
         if block is not None:
-            aux = aux / block.size
+            aux = aux / block.n_blocks
     if m.num_shared_experts:
         out = out + L.mlp(x2d, p["shared"], cfg.act)
     return out.reshape(b, s, d), aux
@@ -421,14 +445,6 @@ def _leaves(p):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _all_gather(t, group, dim):
-    """``t``'s blocks from every rank of ``group``, joined along ``dim`` in
-    rank order."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim)
-
-
 class _Gather(torch.autograd.Function):
     """``_all_gather`` under autograd. The gradient of the joined tensor
     is the same on every rank (the model past the route is replicated),
@@ -438,7 +454,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, t, group, dim):
         ctx.dim, ctx.n = dim, t.shape[dim]
         ctx.rank = dist.get_rank(group)
-        return _all_gather(t, group, dim)
+        return SH._all_gather(t, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -469,7 +485,7 @@ class _Replicated(torch.autograd.Function):
         for group in ctx.sums:
             dist.all_reduce(g, group=group)
         for dim, group in reversed(ctx.splits):
-            g = _all_gather(g, group, dim)
+            g = SH._all_gather(g, group, dim)
         return g, None, None
 
 
@@ -497,18 +513,14 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
     over every shard (the reference's ``pmean``).
 
     x (B, S, D) is the global view (the port's model is replicated on each
-    rank), unless a ``DpBlock`` is in force (``sharding.use_dp_block``, the
-    train step's): then x is already this rank's block of B, the route
-    splits and gathers S over ``model`` only, and the aux is this rank's
-    share, the mean over its ``model`` shards over the dp size.
+    rank); the train step's sequence blocks take ``moe_ffn_ep_block``.
 
     It is differentiable, with ``shard_map``'s transposes: the gradient
     of each replicated input (x, the router, the experts, the shared
     expert) is this rank's part summed over the axes it splits
     (``_Replicated``), the gather's is this rank's block (``_Gather``) and
-    the aux sum's passes through (``_MeshSum``). So with the global view
-    every rank ends a backward with the whole gradient; on a block, with
-    its block's, which the train step sums over the dp axes.
+    the aux sum's passes through (``_MeshSum``). So every rank ends a
+    backward with the whole gradient.
 
     On a ``ShapeMesh`` every shard runs in this process (the dry run)."""
     dp = SH.dp_axes(mesh)
@@ -528,14 +540,11 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
         out = out.reshape(n_dp, n_sh, bl, sl, d).transpose(1, 2) \
                  .reshape(b, s, d)
         return out, aux.mean()
-    if SH.current_dp_block() is not None:     # x is this rank's block of B
-        dp_groups = []
-    else:
-        if b % n_dp:
-            raise ValueError(f"moe_ffn_ep_sharded: a batch of {b} does not "
-                             f"split over the dp size {n_dp}")
-        dp_groups = [mesh.get_group(a) for a in dp   # major axis first
-                     if SH.axis_size(mesh, a) > 1]
+    if b % n_dp:
+        raise ValueError(f"moe_ffn_ep_sharded: a batch of {b} does not "
+                         f"split over the dp size {n_dp}")
+    dp_groups = [mesh.get_group(a) for a in dp       # major axis first
+                 if SH.axis_size(mesh, a) > 1]
     model = [mesh.get_group("model")] if n_sh > 1 else []
     groups = dp_groups + model
 
@@ -554,3 +563,21 @@ def moe_ffn_ep_sharded(x, p, cfg, mesh):
     for g in reversed(dp_groups):          # minor axis first
         out = _Gather.apply(out, g, 0)
     return out, _MeshSum.apply(aux, groups) / (n_dp * n_sh)
+
+
+def moe_ffn_ep_block(x, p, cfg, block):
+    """The expert-parallel route on the train step's sequence block
+    (``sharding.seq_block``): x (B/dp, S/m, D) is this rank's shard of the
+    reference's ``shard_map``, routed by ``moe_ffn_ep`` over ``model``
+    against this rank's expert shard. The experts enter as this rank's
+    slice, so their gradient here is its shard's, from every rank's tokens,
+    and zero elsewhere; the router's and the shared expert's are this
+    rank's part. The train step sums every leaf over the blocks once, which
+    makes each the whole gradient. The aux is this shard's over the number
+    of shards, its share of the reference's mean over them."""
+    e_local = cfg.moe.num_experts // block.seq_size
+    lo = block.seq_index * e_local
+    pl = {n: (v[lo:lo + e_local] if n in ("wi", "wg", "wo") else v)
+          for n, v in p.items()}
+    out, aux = moe_ffn_ep(x, pl, cfg, group=block.seq_group)
+    return out, aux / block.n_blocks

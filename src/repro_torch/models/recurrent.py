@@ -17,6 +17,15 @@ While autograd records (training), K4 and K5 run inside ``WKV6`` and
 ``rwkv6_chunked`` and ``rglru_scan`` recomputed from the inputs, the forms
 the reference trains through; ``WKV6`` returns the final state as a new
 tensor instead of writing the caller's.
+
+On the train step's sequence block (``sharding.seq_block``) the token
+shift and the causal conv read the positions before the block from the
+previous ranks (``TokenBlock.halo``), the projections, gates and norms
+run on this rank's positions, and an all-to-all over ``model`` hands the
+scan this rank's heads (WKV6) or channels (RG-LRU) over the whole
+sequence, and hands the result back: the norm after WKV6 is a layernorm
+over all of D, so it runs on the sequence block. Where ``model`` does not
+divide the heads or channels, every rank scans all of them.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import seq_block
 
 RWKV_LORA = 32
 DECAY_LORA = 64
@@ -210,10 +220,24 @@ class WKV6(torch.autograd.Function):
 
 
 def _shifted(x, x_last):
-    """The previous token of each position: x_last (or zeros) first."""
+    """The previous token of each position: x_last (or zeros, or on a
+    sequence block the previous block's last) first."""
     if x_last is None:
+        blk = seq_block()
+        if blk is not None:
+            return torch.cat([blk.halo(x, 1), x[:, :-1]], dim=1)
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _to_scan(blk, ts, n: int):
+    """(B, S/m, n, ...) tensors of a sequence block ``blk`` -> the whole
+    sequence of this rank's part of the n heads or channels (dim 2), or of
+    all of them where ``model`` does not divide n; and the way back."""
+    if blk.share(n) is not None:
+        return [blk.seq_to_heads(t) for t in ts], blk.heads_to_seq
+    s = blk.share(ts[0].shape[1] * blk.seq_size)
+    return [blk.gather_seq(t) for t in ts], lambda t: t[:, s]
 
 
 def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
@@ -227,24 +251,30 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
     b, s, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
-    if state is None:
-        state = torch.zeros(b, h, n, n, device=x.device)
+    blk = seq_block() if state is None and x_last is None else None
     r, k, v, g, w_log = _rwkv6_projections(x, _shifted(x, x_last), p)
-    rh = r.reshape(b, s, h, n)
-    kh = k.reshape(b, s, h, n)
-    vh = v.reshape(b, s, h, n)
-    wh = w_log.reshape(b, s, h, n)
+    rh, kh, vh, wh = (a.reshape(b, s, h, n) for a in (r, k, v, w_log))
+    u, back = p["u"], None
+    if blk is not None:       # this rank's heads over the whole sequence
+        (rh, kh, vh, wh), back = _to_scan(blk, (rh, kh, vh, wh), h)
+        hs = blk.share(h)
+        u = u if hs is None else u[hs]
+        s = rh.shape[1]
+    if state is None:
+        state = torch.zeros(b, u.shape[0], n, n, device=x.device)
     if s == 1:
         o, state = rwkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
                               p["u"], state)
         o = o[:, None]
     else:
         c = max(chunk if s % chunk == 0 else int(np.gcd(s, chunk)), 1)
-        if L.records_grad(rh, kh, vh, wh, p["u"], state):
-            o, state = WKV6.apply(rh, kh, vh, wh, p["u"], state, c)
+        if L.records_grad(rh, kh, vh, wh, u, state):
+            o, state = WKV6.apply(rh, kh, vh, wh, u, state, c)
         else:
-            o = ops.rwkv6_scan(rh, kh, vh, wh, p["u"], chunk=c, state=state)
-    o2 = o.reshape(b, s, d)
+            o = ops.rwkv6_scan(rh, kh, vh, wh, u, chunk=c, state=state)
+    if back is not None:
+        o = back(o)
+    o2 = o.reshape(g.shape)
     o2 = L.layernorm(o2.to(x.dtype), p["ln_out"]["scale"],
                      p["ln_out"]["bias"])                      # group-norm approx
     out = (o2 * g) @ p["wo"]
@@ -365,16 +395,19 @@ def rglru_forward(x, p, cfg, *, state=None):
     """Griffin recurrent block. x (B,S,D).
 
     state: dict(h (B,W) f32, conv (B,CW-1,W) f32) or None.
-    Returns (out, new_state).
+    Returns (out, new_state): on a sequence block, h at its last position.
     """
     b, s, d = x.shape
     w = cfg.lru_width
+    blk = seq_block() if state is None else None
     if state is None:
         state = {"h": torch.zeros(b, w, device=x.device),
                  "conv": torch.zeros(b, CONV_WIDTH - 1, w, device=x.device)}
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")         # (B,S,W)
     u = x @ p["w_in"]
-    u, conv_state = _causal_conv1d(u, p["conv"], state["conv"])
+    u, conv_state = _causal_conv1d(
+        u, p["conv"], state["conv"] if blk is None else
+        blk.halo(u, CONV_WIDTH - 1))
     uf = u.float()
     r = torch.sigmoid(u @ p["w_a"]).float()                    # recurrence gate
     i = torch.sigmoid(u @ p["w_x"]).float()                    # input gate
@@ -389,10 +422,17 @@ def rglru_forward(x, p, cfg, *, state=None):
     else:
         # one block over the whole call: the reference model scans any S,
         # and the chunk/bw tiling checks belong to the TPU kernel's grid
-        if L.records_grad(xin, a_log, state["h"]):
-            y = RGLRU.apply(xin, a_log, state["h"])
+        h0, back = state["h"], None
+        if blk is not None:   # this rank's channels over the whole sequence
+            (xin, a_log), back = _to_scan(blk, (xin, a_log), w)
+            h0 = torch.zeros(b, xin.shape[2], device=x.device)
+        if L.records_grad(xin, a_log, h0):
+            y = RGLRU.apply(xin, a_log, h0)
         else:
-            y = ops.rg_lru(xin, a_log, chunk=s, bw=w, h0=state["h"])
+            y = ops.rg_lru(xin, a_log, chunk=xin.shape[1], bw=xin.shape[2],
+                           h0=h0)
+        if back is not None:
+            y = back(y)
         h_last = y[:, -1]
     out = (y.to(x.dtype) * gate) @ p["w_out"]
     return out, {"h": h_last, "conv": conv_state}

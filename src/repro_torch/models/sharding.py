@@ -16,12 +16,25 @@ The port's model is replicated on each rank and its tensors are plain, so
 ``constrain`` returns a plain tensor unchanged; only a ``DTensor`` is
 redistributed. With no mesh in context it is a no-op, as in the reference.
 
-The batch half of the reference's partition is explicit: ``dp_block``
-says which block of a global batch's rows this rank holds over the mesh's
-dp axes (the reference's ``"dp"`` entries), and the train step runs on
-that block under ``use_dp_block``. The few statistics that must be global
-(the masked cross-entropy's token count, the MoE's expert counts) read
-the block from there and exchange them over its process groups.
+The reference's partition of a train step is explicit here. A
+``TokenBlock`` says which block of a global batch this rank computes: its
+rows over the mesh's dp axes (the reference's ``"dp"`` entries) and, in
+the ``2d`` layout where ``model`` divides S, its sequence block over
+``model`` (the residual stream's ``("dp", "model", None)``). The train step
+runs on that block under ``use_dp_block``. The few statistics that must be
+global (the masked cross-entropy's token count, the MoE's expert counts)
+read the block from there and exchange them over its process groups; the
+mixers exchange tokens over ``model`` through the block's autograd
+collectives (``gather_seq``, ``scatter_seq``, ``seq_to_heads``,
+``heads_to_seq``, ``halo``), so attention and the scans run on this rank's
+heads or channels over the whole sequence.
+
+Every rank differentiates its own share of the global loss, so the
+gradient of a tensor that several ranks hold is the sum of their parts,
+and the train step sums the parameters' parts over the whole block grid
+once. Each collective's backward is its transpose under that rule: a
+gather's is a reduce-scatter, a reduce-scatter's a gather, an all-to-all's
+the inverse all-to-all.
 """
 from __future__ import annotations
 
@@ -97,15 +110,33 @@ def _fits(dim: int, mesh, axis) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
-class DpBlock:
-    """This rank's block of a global batch: block ``index`` of ``size``
-    equal blocks of rows, in row order, the dp axes' coordinates read
-    major axis first (as the reference's batch sharding lays them out);
-    ``groups``: the process groups of the dp axes of size > 1, major
-    first."""
+class TokenBlock:
+    """This rank's block of a global batch: rows block ``index`` of
+    ``size`` equal blocks, the dp axes' coordinates read major axis first
+    (as the reference's batch sharding lays them out), ``groups`` the
+    process groups of the dp axes of size > 1, major first; and sequence
+    block ``seq_index`` of ``seq_size`` over ``seq_group`` (the ``model``
+    axis's group, None where the sequence stays whole). Blocks are
+    numbered dp-major, sequence-minor (``flat_index``), as ``model`` is
+    the mesh's last axis."""
     index: int
     size: int
     groups: tuple
+    seq_index: int = 0
+    seq_size: int = 1
+    seq_group: object = None
+
+    @property
+    def n_blocks(self) -> int:
+        return self.size * self.seq_size
+
+    @property
+    def flat_index(self) -> int:
+        return self.index * self.seq_size + self.seq_index
+
+    def _all_groups(self) -> tuple:
+        return self.groups + ((self.seq_group,) if self.seq_group is not None
+                              else ())
 
     def rows(self, n: int) -> slice:
         """This block's rows of ``n``."""
@@ -115,45 +146,181 @@ class DpBlock:
     def sum_(self, t):
         """``t`` summed over the blocks, in place; every rank ends with the
         same values."""
-        for g in self.groups:
+        for g in self._all_groups():
             dist.all_reduce(t, group=g)
         return t
 
     def gather(self, t):
-        """(size, *t.shape): every block's ``t``, in block order."""
+        """(n_blocks, *t.shape): every block's ``t``, in block order."""
         out = t[None]
-        for g in reversed(self.groups):                # minor axis first
-            parts = [torch.empty_like(out)
-                     for _ in range(dist.get_world_size(g))]
-            dist.all_gather(parts, out.contiguous(), group=g)
-            out = torch.cat(parts)
+        for g in reversed(self._all_groups()):         # minor axis first
+            out = _all_gather(out, g, 0)
         return out
+
+    def share(self, n: int):
+        """This rank's 1/m of ``n`` positions, heads or channels over
+        ``model``, a slice, or None where m does not divide ``n`` (every
+        rank then computes all of them)."""
+        if n % self.seq_size:
+            return None
+        per = n // self.seq_size
+        return slice(self.seq_index * per, (self.seq_index + 1) * per)
+
+    def gather_seq(self, t, dim: int = 1):
+        """The whole sequence of ``t`` (this block's along ``dim``), in
+        block order; its backward sums the ranks' gradients and keeps this
+        block's (a reduce-scatter)."""
+        return _SeqGather.apply(t, self.seq_group, dim)
+
+    def scatter_seq(self, t, dim: int = 1):
+        """This block of the sum over ``model`` of ``t`` (a whole sequence
+        along ``dim``, each rank's partial sum); its backward gathers."""
+        return _SeqScatter.apply(t, self.seq_group, dim)
+
+    def seq_to_heads(self, t, dim: int = 2):
+        """(B, S/m, H, ...) -> (B, S, H/m, ...): the whole sequence of this
+        rank's block of ``dim`` (heads or channels), by an all-to-all."""
+        return _AllToAll.apply(t, self.seq_group, dim, 1)
+
+    def heads_to_seq(self, t, dim: int = 2):
+        """``seq_to_heads``'s inverse: (B, S, H/m, ...) -> (B, S/m, H,
+        ...)."""
+        return _AllToAll.apply(t, self.seq_group, 1, dim)
+
+    def halo(self, t, rows: int):
+        """The ``rows`` positions of the global sequence before this block
+        of ``t`` (B, S/m, ...), zeros before the first block: every
+        block's last rows gathered, so every rank's graph holds the same
+        collectives."""
+        r = min(rows, t.shape[1])
+        tails = self.gather_seq(t[:, -r:])
+        prev = torch.cat([t.new_zeros((t.shape[0], rows) + t.shape[2:]),
+                          tails], dim=1)
+        end = rows + self.seq_index * r
+        return prev[:, end - rows:end]
+
+    def gather_plain(self, t, dim: int = 1):
+        """``gather_seq`` of a tensor that carries no gradient."""
+        return _all_gather(t, self.seq_group, dim)
+
+
+def _all_gather(t, group, dim):
+    """``t``'s blocks from every rank of ``group``, joined along ``dim`` in
+    rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _reduce_scatter(t, group, dim):
+    """This rank's block along ``dim`` of ``t`` summed over ``group``."""
+    parts = [c.contiguous() for c in t.chunk(dist.get_world_size(group),
+                                             dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+def _all_to_all(t, group, split: int, join: int):
+    """Block j of ``t`` along ``split`` to rank j; the blocks received,
+    joined along ``join`` in rank order."""
+    n = dist.get_world_size(group)
+    src = torch.stack(t.chunk(n, split)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return torch.cat(out.unbind(0), join)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, split, join):
+        ctx.group, ctx.split, ctx.join = group, split, join
+        return _all_to_all(t, group, split, join)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g, ctx.group, ctx.join, ctx.split), None, None,
+                None)
+
+
+def _coordinates(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
 def dp_block(mesh, batch: int):
-    """The ``DpBlock`` this rank holds of a global batch of ``batch`` rows
-    on ``mesh``, or None where every rank keeps the whole batch: no mesh,
-    a ``ShapeMesh`` (one process holds every shard), or a batch that the
-    dp size does not divide (``_fits``, as ``constrain``'s rule: dp size 1
-    included)."""
+    """The ``TokenBlock`` of rows this rank holds of a global batch of
+    ``batch`` rows on ``mesh`` (its whole sequence), or None where every
+    rank keeps every row: no mesh, a ``ShapeMesh`` (one process holds
+    every shard), or a batch that the dp size does not divide (``_fits``,
+    as ``constrain``'s rule: dp size 1 included)."""
     if mesh is None or isinstance(mesh, ShapeMesh):
         return None
     dp = dp_axes(mesh)
     if not _fits(batch, mesh, dp):
         return None
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    coord = _coordinates(mesh)
     index = 0
     for a in dp:
         index = index * axis_size(mesh, a) + coord[a]
-    return DpBlock(index, axis_size(mesh, dp),
-                   tuple(mesh.get_group(a) for a in dp
-                         if axis_size(mesh, a) > 1))
+    return TokenBlock(index, axis_size(mesh, dp),
+                      tuple(mesh.get_group(a) for a in dp
+                            if axis_size(mesh, a) > 1))
+
+
+def token_block(mesh, batch: int, seq: int):
+    """The ``TokenBlock`` this rank computes of a global batch of (batch,
+    seq) tokens: ``dp_block``'s rows and, in the ``2d`` layout where
+    ``model`` divides ``seq`` (``_fits``), its sequence block over
+    ``model``; None where every rank computes the whole batch."""
+    rows = dp_block(mesh, batch)
+    if rows is None and (mesh is None or isinstance(mesh, ShapeMesh)):
+        return None
+    if current_layout() != "2d" or not _fits(seq, mesh, "model"):
+        return rows
+    if mesh.mesh_dim_names[-1] != "model":
+        raise ValueError(f"'model' must be the mesh's last axis: "
+                         f"{mesh.mesh_dim_names}")
+    rows = rows or TokenBlock(0, 1, ())
+    return dataclasses.replace(rows, seq_index=_coordinates(mesh)["model"],
+                               seq_size=axis_size(mesh, "model"),
+                               seq_group=mesh.get_group("model"))
 
 
 def current_dp_block():
-    """The ``DpBlock`` the running step computes, or None (the whole
+    """The ``TokenBlock`` the running step computes, or None (the whole
     batch)."""
     return getattr(_CTX, "dp_block", None)
+
+
+def seq_block():
+    """The running step's ``TokenBlock`` where it splits the sequence over
+    ``model``, else None."""
+    block = current_dp_block()
+    if block is None or block.seq_group is None:
+        return None
+    return block
 
 
 @contextlib.contextmanager
@@ -161,7 +328,8 @@ def use_dp_block(block):
     """Run the model on ``block`` of the global batch: its losses are this
     rank's shares of the global ones (``transformer.softmax_xent``, the
     MoE's aux), its MoE capacity and drops the global ones
-    (``moe._moe_tokens``). None: the whole batch."""
+    (``moe._moe_tokens``), and a sequence block's mixers exchange tokens
+    over ``model``. None: the whole batch."""
     prev = getattr(_CTX, "dp_block", None)
     _CTX.dp_block = block
     try:

@@ -18,14 +18,19 @@ autograd Functions, and ``cfg.remat`` wraps each repeat's blocks (and each
 encoder layer) in ``torch.utils.checkpoint``, as the reference wraps its
 scan bodies in ``jax.checkpoint``. ``constrain`` sits where the
 reference's does (a no-op on the port's plain tensors); under a mesh the
-train step runs ``train_loss`` on this rank's block of the batch's rows
+train step runs ``train_loss`` on this rank's token block of the batch
 (``sharding.use_dp_block``), where the losses are this rank's shares of
-the global ones. A MoE block
-takes the expert-parallel route (``moe_ffn_ep_sharded``, which trains with
-the bf16 exchange and refuses the int8 one under autograd) under the
-reference's condition: ``moe_impl == "ep"`` and a ``use_mesh`` mesh in the
-``2d`` layout whose ``model`` axis is > 1 and divides S; else ``moe_ffn``
-with ``moe_group``.
+the global ones. On a sequence block (``sharding.seq_block``) the
+residual stream, norms, MLPs, the MoE and the loss run on this rank's
+positions; attention gathers the sequence and runs this rank's heads,
+RWKV6 and the RG-LRU exchange positions for heads or channels
+(``attention.py``, ``recurrent.py``), and Whisper's encoder runs whole on
+every ``model`` rank, as the reference's constraint leaves it. A MoE block
+takes the expert-parallel route (``moe_ffn_ep_sharded``, or on a sequence
+block ``moe_ffn_ep_block``; each trains with the bf16 exchange and refuses
+the int8 one under autograd) under the reference's condition: ``moe_impl
+== "ep"`` and a ``use_mesh`` mesh in the ``2d`` layout whose ``model`` axis
+is > 1 and divides S; else ``moe_ffn`` with ``moe_group``.
 """
 from __future__ import annotations
 
@@ -41,8 +46,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.sharding import (axis_size, constrain,
                                          current_dp_block, current_layout,
-                                         current_mesh, use_dp_block,
-                                         use_mesh)
+                                         current_mesh, seq_block,
+                                         use_dp_block, use_mesh)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -193,11 +198,17 @@ def _local_ring_attend(q, cache, t, window):
 def _local_attention_block(x, p, cfg, positions, cache, t):
     """Local (sliding-window) attention with a ring-buffer cache, on the
     plain attention functions, as the reference runs it (no kernel: K3
-    takes neither a window nor head_dim 256, ROADMAP queue 1, item 18)."""
+    takes neither a window nor head_dim 256, ROADMAP queue 1, item 18).
+    On a sequence block, this rank's heads over the whole sequence, as
+    ``attention.gqa_forward``."""
+    blk = seq_block() if cache is None else None
+    if blk is not None:
+        x = blk.gather_seq(x)
     b, s, d = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    w = A.Heads.of(p, cfg, blk)
+    q = torch.einsum("bsd,dhk->bshk", x, w.wq)
+    k, v = w.kv(torch.einsum("bsd,dhk->bshk", x, w.wk),
+                torch.einsum("bsd,dhk->bshk", x, w.wv))
     q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
     k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
     if cache is not None:
@@ -218,7 +229,7 @@ def _local_attention_block(x, p, cfg, positions, cache, t):
             o = A.chunked_attention(q, k, v, causal=True,
                                     window=cfg.local_window,
                                     q_block=blk, kv_block=blk)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo))
 
 
 def _store(cache, key, value):
@@ -289,9 +300,13 @@ def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
     elif is_moe:
         mesh = current_mesh()
         n_model = axis_size(mesh, "model") if mesh is not None else 1
+        blk = seq_block()
+        s_all = h2.shape[1] * (blk.seq_size if blk is not None else 1)
         use_ep = (cfg.moe_impl == "ep" and current_layout() == "2d"
-                  and n_model > 1 and h2.shape[1] % n_model == 0)
-        if use_ep:
+                  and n_model > 1 and s_all % n_model == 0)
+        if use_ep and blk is not None:       # h2 is this rank's EP shard
+            f, aux = M.moe_ffn_ep_block(h2, bp["moe"], cfg, blk)
+        elif use_ep:
             f, aux = M.moe_ffn_ep_sharded(h2, bp["moe"], cfg, mesh)
         else:
             f, aux = M.moe_ffn(h2, bp["moe"], cfg, group_size=moe_group)
@@ -427,7 +442,13 @@ def _embed(params, cfg, tokens, positions, patches=None):
 def encode(params, cfg, audio):
     """Whisper's encoder over precomputed frame embeddings (the conv stub):
     the learned positions, ``encoder_layers`` non-causal blocks (K3's full
-    path), the final norm."""
+    path), the final norm. It runs the whole sequence on every ``model``
+    rank, as the reference constrains it to ``("dp", None, None)``."""
+    with use_dp_block(None):
+        return _encode(params, cfg, audio)
+
+
+def _encode(params, cfg, audio):
     enc = params["enc"]
     x = audio.to(_torch_dtype(cfg.dtype)) + enc["pos_embed"][None]
     x = constrain(x, "dp", None, None)
@@ -450,16 +471,20 @@ def _forward(params, cfg, batch, *, caches=None, t=None, moe_group=0,
     """``forward``'s body, outside ``inference_mode`` (``train_loss``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    blk = seq_block()
     if "positions" in batch:
         positions = batch["positions"]
-    else:
-        positions = (t or 0) + torch.arange(s, device=tokens.device)
+    else:                     # global: a sequence block starts at its offset
+        start = (t or 0) + (blk.seq_index * s if blk is not None else 0)
+        positions = start + torch.arange(s, device=tokens.device)
         positions = positions[None].expand(b, s)
     enc_out = None
     if cfg.is_encoder_decoder and "audio" in batch:
         enc_out = encode(params, cfg, batch["audio"])
     x = _embed(params, cfg, tokens, positions, batch.get("patches"))
     x = constrain(x, "dp", "model", None)
+    if blk is not None:       # the mixers see the whole sequence's positions
+        positions = blk.gather_plain(positions, dim=-1)
     x, aux = _run_stages(params, cfg, x, positions, enc_out=enc_out,
                          caches=caches, t=t, moe_group=moe_group)
     h_final = L.norm(x, params["final_norm"], cfg.norm)
@@ -489,9 +514,10 @@ def forward(params, cfg, batch, *, caches=None, t=None, moe_group: int = 0,
 def softmax_xent(logits, labels, mask, impl: str = "gather"):
     """Mean negative log-likelihood over ``mask``; labels < 0 are clipped
     to 0 before the lookup (and masked out by the caller). Under a
-    ``DpBlock`` (``sharding.use_dp_block``) this rank's share of the global
+    ``TokenBlock`` (``sharding.use_dp_block``) this rank's share of the global
     mean: its masked sum over the global mask count (one all-reduce of a
-    scalar, which carries no gradient)."""
+    scalar over each axis that splits the batch, which carries no
+    gradient)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     lab = labels.clamp(min=0).long()
@@ -508,23 +534,46 @@ def softmax_xent(logits, labels, mask, impl: str = "gather"):
     return nll.sum() / torch.clamp(count, min=1.0)
 
 
-def _mtp_loss(params, cfg, h_final, tokens, labels, mask):
-    """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t; emb_{t+1}],
-    shifted by one and padded back to S (the padded tail masked out)."""
-    mp = params["mtp"]
+def next_targets(tokens, labels) -> dict:
+    """The multi-token prediction's inputs of a (B, S) batch: each
+    position's next token and next label, the last position's padded (0
+    and -1, masked out)."""
     pad = torch.nn.functional.pad
-    h = L.norm(pad(h_final[:, :-1], (0, 0, 0, 1)), mp["norm_h"], cfg.norm)
-    shifted = pad(tokens[:, 1:], (0, 1))
-    e = L.norm(params["embed"][shifted], mp["norm_e"], cfg.norm)
+    return {"next_tokens": pad(tokens[:, 1:], (0, 1)),
+            "next_labels": pad(labels[:, 1:], (0, 1), value=-1)}
+
+
+def _mtp_loss(params, cfg, h_final, tokens, labels, mask, nxt=None):
+    """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t; emb_{t+1}],
+    shifted by one and padded back to S (the padded tail masked out).
+    ``nxt``: ``next_targets`` of the global batch, cut to this rank's
+    sequence block (the train step's); the global last position's h is
+    zeroed on the block that holds it."""
+    mp = params["mtp"]
+    blk = seq_block()
+    b, s, _ = h_final.shape
+    if blk is None:
+        h = torch.nn.functional.pad(h_final[:, :-1], (0, 0, 0, 1))
+        pos = torch.arange(s, device=h_final.device)
+    else:
+        at_end = blk.seq_index == blk.seq_size - 1
+        last = torch.arange(s, device=h_final.device) == \
+            (s - 1 if at_end else s)
+        h = torch.where(last[:, None], 0.0, h_final)
+        pos = torch.arange(s * blk.seq_size, device=h_final.device)
+    if nxt is None:
+        nxt = next_targets(tokens, labels)
+        m2 = torch.nn.functional.pad(mask[:, 1:], (0, 1))
+    else:
+        m2 = (nxt["next_labels"] >= 0).float()
+    h = L.norm(h, mp["norm_h"], cfg.norm)
+    e = L.norm(params["embed"][nxt["next_tokens"]], mp["norm_e"], cfg.norm)
     x = torch.cat([h, e], dim=-1) @ mp["proj"]
-    b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)[None].expand(b, s)
     bp = _tree_map(lambda a: a[0], mp["block"]["sub0"])
-    x, _, _ = apply_block(x, bp, cfg, ("attn", False), pos)
+    x, _, _ = apply_block(x, bp, cfg, ("attn", False),
+                          pos[None].expand(b, -1))
     logits = x @ params["lm_head"]
-    lab2 = pad(labels[:, 1:], (0, 1), value=-1)
-    m2 = pad(mask[:, 1:], (0, 1))
-    return softmax_xent(logits, lab2, m2, cfg.xent_impl)
+    return softmax_xent(logits, nxt["next_labels"], m2, cfg.xent_impl)
 
 
 def train_loss(params, cfg, batch, *, moe_group: int = 0):
@@ -532,7 +581,7 @@ def train_loss(params, cfg, batch, *, moe_group: int = 0):
     Returns (loss, metrics) as the reference's. Called with autograd on,
     the loss carries the graph to every parameter leaf that requires a
     gradient (``repro_torch.launch.steps.make_train_step``). Under a
-    ``DpBlock`` the batch is this rank's block of the global one, and the
+    ``TokenBlock`` the batch is this rank's block of the global one, and the
     loss and each metric are this rank's shares: summed over the blocks
     they are the reference's values over the global batch."""
     labels = batch["labels"]
@@ -542,7 +591,9 @@ def train_loss(params, cfg, batch, *, moe_group: int = 0):
     loss = softmax_xent(logits, labels, mask, cfg.xent_impl)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp:
-        mtp = _mtp_loss(params, cfg, h, batch["tokens"], labels, mask)
+        nxt = ({k: batch[k] for k in ("next_tokens", "next_labels")}
+               if "next_tokens" in batch else None)
+        mtp = _mtp_loss(params, cfg, h, batch["tokens"], labels, mask, nxt)
         metrics["mtp"] = mtp
         loss = loss + 0.1 * mtp
     return loss + aux, metrics

@@ -3,7 +3,9 @@ card's least time for the work (``bound``), the least time of a matmul cut
 into slices (``sliced_bound_ms``), K3's work (``k3_work``), K4's work and bound (``wkv6_work``,
 ``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), what
 ``trace_report`` reads from K2's trace, and training's yardsticks (AdamW's
-bytes, the gradient errors, each training cell's launches). Pure arithmetic from the H100's
+bytes, the gradient errors, each training cell's launches), and what a
+rank of the split train step sends over ``model`` (``sp_exchange_bytes``).
+Pure arithmetic from the H100's
 data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
 inside ``main``."""
 import importlib.util
@@ -236,3 +238,20 @@ def test_training_cells_count_their_kernels(smoke):
         n = cfg.layer_kinds()[:depth or cfg.num_layers].count(kinds[op])
         assert cfg.remat and 2 * n == per_step, (arch, n, per_step)
     assert [c[6] for c in smoke.TRAIN_CELLS] == [64, 48, 4]
+
+
+@pytest.mark.parametrize("kind, width, d, want", [
+    # gather 3 blocks of 1024 x 3072 bf16 and reduce-scatter as many
+    ("attn", 3072, 3072, 2 * 3 * 1024 * 3072 * 2),
+    # MLA gathers its 2112-wide latents and reduce-scatters D = 5120
+    ("attn", 2112, 5120, 3 * 1024 * (2112 + 5120) * 2),
+    # 3/4 of r, k, v (bf16), w_log and out (f32), 1024 x 2048 each, and
+    # two 1-row halos gathered from 3 ranks
+    ("rwkv6", 2048, 0, 3 * 1024 * 2048 * (3 * 2 + 8) // 4
+     + 2 * 3 * 2048 * 2),
+    # 3/4 of x, a_log and h (f32), 1024 x 4096, and the 3-row conv halo
+    ("rglru", 4096, 0, 3 * 1024 * 4096 * 12 // 4 + 3 * 3 * 4096 * 2)])
+def test_sp_exchange_bytes(smoke, kind, width, d, want):
+    assert smoke.sp_exchange_bytes(kind, 1, 4096, 4, width, d) == want
+    with pytest.raises(ValueError):
+        smoke.sp_exchange_bytes("mlp", 1, 4096, 4, width)

@@ -1,14 +1,16 @@
 """Data-parallel training: the mesh's batch axes split a step's work. On 4
 ``gloo`` ranks and the (4, 1), (2, 2) and (1, 4) meshes, each rank of the
 port's ``make_train_step`` computes only its block of the global batch's
-rows and the gradients are summed over the dp axes; three steps of reduced
-phi3 and reduced DeepSeek-V2 (the plain MoE route at a capacity that drops
-pairs, and the EP route) are held to the reference's jitted step under the
-same mesh on 4 forced host devices, in f32. The global statistics (the
-masked cross-entropy's token count over unevenly masked blocks, the Switch
-aux, the ungrouped MoE's capacity drops) are the reference's; a batch that
-the dp size does not divide stays whole; ``train()`` runs through a
-failure and a restore against the reference's ``train()``.
+rows (and, where ``model`` divides S, of its sequence:
+``tests/test_torch_sp_train.py``) and the gradients are summed over the
+blocks; three steps of reduced phi3 and reduced DeepSeek-V2 (the plain MoE
+route at a capacity that drops pairs, and the EP route) are held to the
+reference's jitted step under the same mesh on 4 forced host devices, in
+f32. The global statistics (the masked cross-entropy's token count over
+unevenly masked blocks, the Switch aux, the ungrouped MoE's capacity
+drops) are the reference's; a batch that neither the dp size nor
+``model`` divides stays whole; ``train()`` runs through a failure and a
+restore against the reference's ``train()``.
 
 The harness is ``tests/test_torch_ep_train.py``'s: the reference runs in a
 subprocess (JAX fixes its device count at first use) while the port's 4
@@ -52,8 +54,10 @@ MOVE_TOL = 2e-3
 # dp sizes hold unequal token counts: row r keeps positions < KEEP[r]
 KEEP = (4, 16, 1, 11)
 FLOP_TOL = 0.01
-# a batch that the dp size does not divide, per mesh with dp > 1
-WHOLE = {(4, 1): 2, (2, 2): 3}
+# a batch that the dp size does not divide, per mesh with dp > 1, as (B,
+# S): on (2, 2) an S that ``model`` does not divide either, else the
+# sequence would split over it
+WHOLE = {(4, 1): (2, SEQ), (2, 2): (3, SEQ - 1)}
 TRAIN_STEPS, FAIL_AT = 8, {7: 1}     # checkpoint at 5, restart there
 MOE_GROUP = 16                       # one group a rank's 16 tokens at dp 4
 
@@ -253,8 +257,8 @@ def _rank_main(rank, world, store_path, tmp):
         # a batch that the dp size does not divide: whole on every rank
         cfg = _cfg(configs, "phi3")
         params = load(ARCH["phi3"])
-        for shape, b in WHOLE.items():
-            batches = [_batch(SyntheticLoader(cfg, b, SEQ, seed=0), 0, b)]
+        for shape, (b, s) in WHOLE.items():
+            batches = [_batch(SyntheticLoader(cfg, b, s, seed=0), 0, b)]
             for key, mesh in (("mesh", meshes[shape]), ("one", None)):
                 pp, _, ms, flops = run(cfg, mesh, batches, params)
                 for leaf, v in _flatten(pp).items():
@@ -445,13 +449,14 @@ def test_every_rank_ends_bit_identical(runs, mesh):
 @pytest.mark.parametrize("mesh", MESHES, ids=_name)
 def test_each_rank_computes_its_block_only(runs, mesh):
     """Dense phi3: a rank's ``FlopCounterMode`` count of the three steps
-    is 1/dp of the one-rank steps' on the whole batch, within 1%."""
+    is 1/(dp·m) of the one-rank steps' on the whole batch, within 1%: the
+    rows split over dp and the sequence over ``model``."""
     _, got, _ = runs
-    dp = mesh[0]
+    n = mesh[0] * mesh[1]
     for res in got:
         one = float(res["flops/phi3_one"])
         mine = float(res[f"flops/phi3_{_name(mesh)}"])
-        assert abs(mine - one / dp) <= FLOP_TOL * one / dp, (mine, one)
+        assert abs(mine - one / n) <= FLOP_TOL * one / n, (mine, one)
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=_name)
@@ -478,10 +483,10 @@ def test_ungrouped_moe_drops_the_reference_pairs_on_blocks(runs, mesh):
 
 @pytest.mark.parametrize("mesh", sorted(WHOLE), ids=_name)
 def test_a_batch_the_dp_size_does_not_divide_stays_whole(runs, mesh):
-    """B = 2 on (4, 1) and B = 3 on (2, 2): every rank runs the whole
-    batch and sums nothing, so a step under the mesh is the step without
-    one, bit for bit, with the same FLOPs. The EP route on the global
-    view of such a batch raises, as the reference's ``shard_map``
+    """B = 2 on (4, 1) and B = 3 with S = 15 on (2, 2): every rank runs
+    the whole batch and sums nothing, so a step under the mesh is the step
+    without one, bit for bit, with the same FLOPs. The EP route on the
+    global view of such a batch raises, as the reference's ``shard_map``
     does."""
     _, got, _ = runs
     n = f"whole_{_name(mesh)}"
