@@ -73,6 +73,11 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      launches no kernel of the port, and every input's gradient is finite
      and equals autograd through an f32 plain version; forward and backward
      timed;
+  2g. (run after 2f) the same at a (1, 4) rank's shard shapes of the split
+     train step, from strided slices of full-width tensors; then, with no
+     Function (serving runs under ``inference_mode``), K3 <96> and K4 at a
+     rank's prefill shard shapes, (1, 8, 2048, 96) and (4, 2048, 8, 64),
+     against the plain versions, beside their bounds and SDPA's time;
   5. (run after 3e) training, counted the same way: ``make_train_step``
      with the reference's ``OptConfig`` (f32 moments) for 3 steps on one
      repeated batch at full width, under a (1, 1) ``DeviceMesh`` over a
@@ -113,6 +118,18 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      (quickstart, multi_tenant_serving, fault_tolerant_training) on the
      card in this process, counted the same way, each under the profiler
      with its lines logged and its K1, K3 and K4 launches asserted exactly;
+  8. (run after 7) serving under the mesh, counted the same way:
+     ``make_prefill_step`` and ``make_serve_step`` under a (1, 1)
+     ``DeviceMesh`` over a one-rank NCCL group (made for the phase and
+     destroyed after it) and with no mesh, at full width: phi3-mini-3.8b,
+     rwkv6-1.6b, recurrentgemma-9b uncut and deepseek-v2-236b cut to 4
+     layers, each a prefill of 1 x 2048 into a 1 x 4096 cache and 8
+     decode steps of 8 rows over an 8 x 4096 cache holding that prompt;
+     every logit and cache leaf ``torch.equal`` across the two, K3, K4 or
+     K5 once a layer of its kind a prefill and never at decode, the step
+     times side by side, and the per-rank cache bytes of a (1, 4)
+     ``ShapeMesh`` (``shard_bytes`` of ``cache_shardings``) beside the
+     whole cache's;
   4. one JSON line of the kernels, the card line, and the final JSON line.
 
 Predicted CP and makespan are the scheduler's model predictions, labelled
@@ -631,6 +648,11 @@ SHARD_K3 = (("shard_d96_", (1, 4096, 32, 96), 96),
             ("shard_d192_", (1, 2048, 128, 192), 128))
 SHARD_K4 = (1, 2048, 32, 64)
 SHARD_K5 = (1, 2048, 4096)
+# and the prefill shard shapes of serving under the mesh that the training
+# rows lack, (B, S, heads of the whole tensor, D): phi3-mini's prefill
+# 1 x 2048 (K3 <96> at 8 heads) and rwkv6-1.6b's 4 x 2048 (K4 at 8 heads)
+SERVE_K3 = (1, 2048, 32, 96)
+SERVE_K4 = (4, 2048, 32, 64)
 # what a rank of the (1, 4) mesh sends over 'model' a layer at those
 # shapes, bf16 activations: (label, kind, (B, S), gathered width, D)
 SHARD_EXCHANGES = (
@@ -664,6 +686,23 @@ TRAIN_CELLS = (("phi3-mini-3.8b", None, 1, 4096, "flash_attention",
 # layers from this init amplify to ~0.1%
 TWIN_LOSS_REL = 1e-2
 TRAIN_STEPS = 3
+
+
+# phase 8: the serving steps under the (1, 1) DeviceMesh at full width,
+# against the same calls with no mesh: (arch, depth cut (None: uncut), the
+# kernel its prefill launches once a layer of its kind). Each prefills
+# 1 x SERVE_PROMPT into a 1 x SERVE_LEN cache, then decodes SERVE_STEPS
+# tokens of SERVE_BATCH rows over a SERVE_BATCH x SERVE_LEN cache whose
+# rows are that prompt's; SERVE_SPLIT is the ShapeMesh whose per-rank cache
+# bytes it prints
+SERVE_MESH = (("phi3-mini-3.8b", None, "flash_attention", "attn"),
+              ("rwkv6-1.6b", None, "rwkv6_scan", "rwkv6"),
+              ("recurrentgemma-9b", None, "rg_lru", "rglru"),
+              ("deepseek-v2-236b", DS_DEPTH, "flash_attention", "attn"))
+SERVE_PROMPT, SERVE_LEN, SERVE_BATCH, SERVE_STEPS = 2048, 4096, 8, 8
+SERVE_SPLIT = (1, 4)
+# the order of the timed calls, after the first ones
+SERVE_ORDER = ("no mesh", "(1, 1) mesh", "(1, 1) mesh", "no mesh") * 3
 
 
 def grad_errs(got, want):
@@ -808,7 +847,8 @@ def shard_phase(torch, ops, ref, A, R, randn, rows) -> None:
     plain version at the kernel's tolerance, and ``check_function``'s
     launches and gradients. Times the kernel alone (CUDA events; K5 queued
     behind a spin, as phase 2e), the Function's forward and backward, and
-    the kernel's bound at the shard's shape."""
+    the kernel's bound at the shard's shape; then the serving rows
+    (``serve_shards``)."""
     def quarter(t, dim):
         n = t.shape[dim] // SHARD_M
         return t.narrow(dim, SHARD_RANK * n, n)
@@ -904,11 +944,79 @@ def shard_phase(torch, ops, ref, A, R, randn, rows) -> None:
         del args, case, dense, op
     del cases, r4, k4, v4, w4, u4, s4, x5, a5, h5
     torch.cuda.empty_cache()
+    serve_shards(torch, ops, ref, A, randn, rows, quarter, bhsd, k4_kernel)
     for label, kind, (b, s), width, d in SHARD_EXCHANGES:
         log(f"[2g exchange] {label} at {b} x {s}, m = {SHARD_M}: "
             f"{sp_exchange_bytes(kind, b, s, SHARD_M, width, d) / 1e6:.2f} MB "
             f"sent by a rank over 'model' a layer's forward, counted from "
             f"the shapes (as much again in the backward)")
+
+
+def serve_shards(torch, ops, ref, A, randn, rows, quarter, bhsd,
+                 k4_kernel) -> None:
+    """Phase 2g's serving rows: K3 <96> and K4 at a (1, 4) rank's prefill
+    shard shapes (``SERVE_K3``, ``SERVE_K4``), each input a strided
+    quarter of a full-width tensor, against its plain version; kernel
+    (on the slices copied whole), plain and library times (CUDA events)
+    beside the bound. The serving steps run under ``inference_mode``, so
+    the kernel alone, with no autograd Function."""
+    import torch.nn.functional as F
+    card = nvidia_smi("name,power.limit")
+    b, s, h, d = SERVE_K3
+    q, k, v = (quarter(randn((b, s, h, d), torch.bfloat16), 2)
+               for _ in range(3))
+    dense = [bhsd(t).contiguous() for t in (q, k, v)]
+    shape = tuple(dense[0].shape)
+    with torch.no_grad():
+        got = A._flash_fwd(q, k, v, causal=True)
+        want = bhsd(ref.flash_attention(*(t.float() for t in dense),
+                                        causal=True))
+    err = max_err(torch, got, want, BF16_TOL)
+    del got, want
+    ms = time_ms(torch, lambda: ops.flash_attention(*dense, causal=True), 10)
+    plain = time_ms(torch, lambda: ref.flash_attention(*dense, causal=True),
+                    3)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        *dense, is_causal=True), 10)
+    b_ms, b_by = bound(*k3_work(shape, True), "bfloat16")
+    rows["flash_attention"].update({
+        "shard_serve_d96_ms": ms, "shard_serve_d96_bound_ms": b_ms,
+        "shard_serve_d96_err": err, "shard_serve_d96_plain_ms": plain,
+        "shard_serve_d96_library_ms": lib})
+    log(f"[2g serve flash_attention] rank {SHARD_RANK} of {SHARD_M}'s "
+        f"prefill shard {shape} causal bf16, strided slices: kernel "
+        f"{ms:.4f} ms on them copied whole, plain {plain:.4f} ms, SDPA "
+        f"{lib:.4f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.1%} of it; max err {err:.3e} against the full S x S "
+        f"f32 attention; {card}")
+    del q, k, v, dense
+    b, s, h, n = SERVE_K4
+    r4, k4, v4 = (quarter(randn((b, s, h, n), torch.bfloat16), 2)
+                  for _ in range(3))
+    w4 = quarter(-torch.exp(randn((b, s, h, n), torch.float32) - 1.0), 2)
+    u4 = quarter(randn((h, n), torch.float32) * 0.1, 0)
+    s4 = torch.zeros(b, h // SHARD_M, n, n, device=u4.device)
+    args = (r4, k4, v4, w4, u4, s4)
+    with torch.no_grad():
+        got = k4_kernel(*args)[0]
+        want = ref.rwkv6(*(t.float() for t in args))[0]
+    err = max_err(torch, got, want, K4_TOL["bfloat16"])
+    del got, want
+    dense = [t.contiguous() for t in args]
+    ms = time_ms(torch, lambda: k4_kernel(*dense), 10)
+    plain = time_ms(torch, lambda: ref.rwkv6(*(t.float() for t in args)), 1)
+    b_ms, b_by = wkv6_bound_ms(*wkv6_work(b, s, h // SHARD_M, n, 2))
+    rows["rwkv6_scan"].update({
+        "shard_serve_ms": ms, "shard_serve_bound_ms": b_ms,
+        "shard_serve_err": err, "shard_serve_plain_ms": plain})
+    log(f"[2g serve rwkv6_scan] rank {SHARD_RANK} of {SHARD_M}'s prefill "
+        f"shard {tuple(r4.shape)} bf16 r/k/v, f32 w_log/u/state, strided "
+        f"slices: kernel {ms:.4f} ms on them copied whole, the sequential "
+        f"f32 recurrence {plain:.4f} ms (CUDA events), bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / ms:.1%} of it; max err {err:.3e}; no library "
+        f"call; {card}")
+    del args, dense, r4, k4, v4, w4, u4, s4
+    torch.cuda.empty_cache()
 
 
 def training_phase(torch, dev, card) -> dict:
@@ -1585,6 +1693,154 @@ def mesh_phase(torch, dev, card) -> dict:
         return launches
     finally:
         dist.destroy_process_group()
+
+
+def _fill_batch(torch, T, big, small) -> None:
+    """Every row of the caches ``big`` set to ``small``'s one row (the
+    batch dim, after each leaf's stacked layer dim; a ring's ``pos`` is
+    copied as it is)."""
+    with torch.inference_mode():
+        T._zip_map(lambda b, s, _: b.copy_(s.expand_as(b)), big, small)
+
+
+def serving_mesh_phase(torch, dev, card) -> dict:
+    """Phase 8: ``make_prefill_step`` and ``make_serve_step`` under a
+    (1, 1) ``DeviceMesh`` over a one-rank NCCL group, made here and
+    destroyed at the end, against the same calls with no mesh, at full
+    width (``SERVE_MESH``): a prefill of 1 x ``SERVE_PROMPT`` into a
+    1 x ``SERVE_LEN`` cache, then ``SERVE_STEPS`` decode steps of
+    ``SERVE_BATCH`` rows over a ``SERVE_BATCH`` x ``SERVE_LEN`` cache
+    whose rows are that prompt's. Under the mesh every logit and every
+    cache leaf is ``torch.equal`` to no mesh's (m = d = 1 cuts nothing, and
+    the caches ``init_decode_caches`` allocates there are whole), the
+    logits finite and of their shapes, each prefill launches its kernel
+    once a layer of its kind and a decode step none. Then times a prefill
+    and a decode step of each, in turns (``SERVE_ORDER``; host clock
+    around synchronised calls), and prints the medians side by side, and
+    the per-rank cache bytes
+    ``shard_bytes`` counts on a ``SERVE_SPLIT`` ``ShapeMesh`` beside the
+    whole cache's. Returns the kernel launches of both runs."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as T
+
+    total = dict.fromkeys(_build.NAMES, 0)
+    assert not dist.is_initialized(), "an earlier phase left a process group"
+    mesh = make_host_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        assert tuple(mesh.shape) == (1, 1), mesh
+        split = SH.ShapeMesh(("data", "model"), SERVE_SPLIT)
+        for arch, depth, op, kind in SERVE_MESH:
+            full = get_config(arch)
+            cfg = full if depth is None else dataclasses.replace(
+                full, num_layers=depth)
+            n_kernel = cfg.layer_kinds().count(kind)
+            params = T.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(8)
+            prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+                                   generator=gen, device=dev)
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (SERVE_STEPS, SERVE_BATCH), generator=gen,
+                                 device=dev)
+            meta = T.init_decode_caches(cfg, SERVE_BATCH, SERVE_LEN,
+                                        device="meta")
+            leaves = named_leaves(meta)
+            specs = dict(named_leaves(SH.cache_shardings(meta, split)))
+            whole = sum(t.numel() * t.element_size() for _, t in leaves)
+            per_rank = sum(SH.shard_bytes(t, specs[n]) for n, t in leaves)
+            log(f"[serve mesh bytes] {arch}"
+                f"{'' if depth is None else f' ({depth} layers)'} decode "
+                f"caches {SERVE_BATCH} x {SERVE_LEN}: whole "
+                f"{whole / 1e9:.4f} GB; a rank of a {SERVE_SPLIT} ShapeMesh "
+                f"{per_rank / 1e9:.4f} GB (shard_bytes of cache_shardings, "
+                f"{per_rank / whole:.4f} of the whole); {card}")
+            prefill = make_prefill_step(cfg, max_len=SERVE_LEN)
+            serve = make_serve_step(cfg, max_len=SERVE_LEN)
+            runs = {}
+            for label, m in (("no mesh", None), ("(1, 1) mesh", mesh)):
+                with SH.use_mesh(m):
+                    one = T.init_decode_caches(cfg, 1, SERVE_LEN,
+                                               device=dev)
+                    many = T.init_decode_caches(cfg, SERVE_BATCH, SERVE_LEN,
+                                                device=dev)
+                    ops.reset_launches()
+                    lg, one = prefill(params, one, {"tokens": prompt})
+                    pre_launches = dict(ops.LAUNCHES)
+                    _fill_batch(torch, T, many, one)
+                    logits = [lg]
+                    for i in range(SERVE_STEPS):
+                        lg, many = serve(params, many, toks[i],
+                                         SERVE_PROMPT + i)
+                        logits.append(lg)
+                    torch.cuda.synchronize()
+                    dec_launches = {k: ops.LAUNCHES[k] - pre_launches[k]
+                                    for k in _build.NAMES}
+                assert pre_launches[op] == n_kernel and sum(
+                    pre_launches.values()) == n_kernel, (arch, pre_launches)
+                assert not any(dec_launches.values()), (arch, dec_launches)
+                for name in _build.NAMES:
+                    total[name] += pre_launches[name]
+                assert tuple(logits[0].shape) == (1, SERVE_PROMPT,
+                                                  cfg.vocab_size)
+                for lg in logits:
+                    assert bool(torch.isfinite(lg.float()).all()), arch
+                assert all(tuple(lg.shape) == (SERVE_BATCH, cfg.vocab_size)
+                           for lg in logits[1:])
+                runs[label] = (m, logits, one, many)
+            (_, want, one0, many0), (_, got, one1, many1) = (
+                runs["no mesh"], runs["(1, 1) mesh"])
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), arch
+            got_c = named_leaves(one1) + named_leaves(many1)
+            want_c = named_leaves(one0) + named_leaves(many0)
+            assert [n for n, _ in got_c] == [n for n, _ in want_c]
+            for (name, g), (_, w) in zip(got_c, want_c):
+                assert torch.equal(g, w), (arch, name)
+            # the times, after those first calls, in turns: the prefill
+            # again into its cache, and one more decode step (t = the next
+            # row, rewritten each time)
+            times = {label: ([], []) for label in runs}
+            for label in SERVE_ORDER:
+                m, _, one, many = runs[label]
+                with SH.use_mesh(m):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prefill(params, one, {"tokens": prompt})
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    serve(params, many, toks[-1], SERVE_PROMPT + SERVE_STEPS)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                times[label][0].append(1e3 * (t1 - t0))
+                times[label][1].append(1e3 * (t2 - t1))
+            (p0, d0), (p1, d1) = ([median_range(x) for x in times[label]]
+                                  for label in runs)
+            log(f"[serve mesh] {arch}"
+                f"{'' if depth is None else f' ({depth} layers)'} full "
+                f"width, bf16: prefill 1 x {SERVE_PROMPT} median no mesh "
+                f"{p0[0]:.3f} ms ({p0[1]:.3f}-{p0[2]:.3f}) | (1, 1) mesh "
+                f"{p1[0]:.3f} ms ({p1[1]:.3f}-{p1[2]:.3f}); decode step "
+                f"{SERVE_BATCH} x {SERVE_LEN} median no mesh {d0[0]:.3f} ms "
+                f"({d0[1]:.3f}-{d0[2]:.3f}) | (1, 1) mesh {d1[0]:.3f} ms "
+                f"({d1[1]:.3f}-{d1[2]:.3f}); {len(times['no mesh'][0])} "
+                f"calls each, in turns {SERVE_ORDER[:4]} (host clock, "
+                f"synchronised); {op} {n_kernel} launches a prefill, none "
+                f"a decode step; {len(got)} logits (prefill, {SERVE_STEPS} "
+                f"decode steps at t = {SERVE_PROMPT}.."
+                f"{SERVE_PROMPT + SERVE_STEPS - 1}) and {len(got_c)} cache "
+                f"leaves torch.equal to no mesh; {card}")
+            del params, runs, want, want_c, got, got_c, meta, leaves, \
+                one0, one1, many0, many1, one, many
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
 
 
 def examples_phase(torch, card) -> dict:
@@ -2746,10 +3002,14 @@ def main() -> int:
     ex_launches = examples_phase(torch, card)
     log(f"[main path] examples launches {ex_launches}")
 
+    # ---- phase 8: serving under the (1, 1) mesh, counted -------------------
+    serve_launches = serving_mesh_phase(torch, dev, card)
+    log(f"[main path] serving mesh launches {serve_launches}")
+
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
                 + ds_launches[name] + mm_launches[name] + train_launches[name]
                 + mesh_launches[name] + ex_launches[name]
-                for name in _build.NAMES}
+                + serve_launches[name] for name in _build.NAMES}
     for name in _build.NAMES:
         assert launches[name] > 0, f"{name} never launched on the main paths"
 

@@ -96,15 +96,44 @@ def make_train_step(cfg, opt_cfg, *, moe_group: int = 0):
     return train_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, *, max_len: int = None):
+    """One decode step. Under a ``use_mesh`` ``DeviceMesh`` it takes the
+    global (B,) token, computes this rank's dp rows of it over the whole
+    residual stream (one token is not split over the sequence), and reads
+    and writes this rank's shards of the caches (``init_decode_caches``
+    under the same mesh) of ``max_len`` rows: attention over an S-split
+    cache combines the ranks' partial softmaxes, the recurrent scans run
+    this rank's heads or channels. Returns this rank's (B/d, V) logits,
+    whole over the vocabulary. ``max_len`` is needed where ``model`` > 1."""
     def serve_step(params, caches, token, t):
-        logits, caches = T.decode_step(params, cfg, caches, token, t)
+        mesh = SH.current_mesh()
+        block = SH.token_block(mesh, token.shape[0], 1)
+        if block is not None:
+            token = token[block.rows(token.shape[0])]
+        with SH.use_dp_block(block), \
+                SH.use_cache_block(SH.cache_block(mesh, max_len)):
+            logits, caches = T.decode_step(params, cfg, caches, token, t)
         return logits, caches
     return serve_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, *, max_len: int = None):
+    """The prompt into the caches. Under a ``use_mesh`` ``DeviceMesh`` it
+    takes the global batch and computes this rank's token block of it, as
+    the train step does (``sharding.token_block``, ``_cut``): attention
+    on this rank's heads over the whole prompt, the scans on its heads or
+    channels; each mixer writes only this rank's shards of the caches of
+    ``max_len`` rows (``sharding.use_cache_block``). Returns this rank's
+    (B/d, S/m, V) block of the logits, whole over the vocabulary (S/m: S
+    where ``model`` does not divide the prompt). ``max_len`` is needed
+    where ``model`` > 1."""
     def prefill_step(params, caches, batch):
-        logits, caches = T.prefill(params, cfg, batch, caches)
+        mesh = SH.current_mesh()
+        block = SH.token_block(mesh, *batch["tokens"].shape)
+        if block is not None:
+            batch = _cut(block, batch, False)
+        with SH.use_dp_block(block), \
+                SH.use_cache_block(SH.cache_block(mesh, max_len)):
+            logits, caches = T.prefill(params, cfg, batch, caches)
         return logits, caches
     return prefill_step

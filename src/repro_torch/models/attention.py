@@ -38,6 +38,12 @@ projection's partial sum is reduce-scattered back to the sequence block.
 Where ``model`` does not divide the heads every rank computes all of them
 and keeps its block; where it divides the q heads but not the kv heads,
 every kv head is projected and each of this rank's q heads takes its own.
+
+Serving under a ``CacheBlock`` (``sharding.use_cache_block``) keeps each
+cache in its own layout, not attention's: a prompt computed on this
+rank's heads writes every head of the cache rows this rank holds
+(``write_prompt``), and a decode step attends over those rows and combines
+the ranks' partial softmaxes (``split_k_combine``).
 """
 from __future__ import annotations
 
@@ -45,10 +51,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import constrain, seq_block
+from repro_torch.models.sharding import (constrain, current_cache_block,
+                                         seq_block)
 
 NEG_INF = -1e30
 
@@ -172,20 +180,54 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, t, *, window: int = 0):
-    """Single-token attention over a (B,S,kv,hd) cache, valid length t."""
+def split_k_combine(m, l, o, group):
+    """The exact softmax-weighted output over keys split across
+    ``group``'s ranks, from each rank's partial max ``m`` (...), sum ``l``
+    (...) and unnormalised output ``o`` (..., dv), all f32: one all-reduce
+    of the max, then one of the sum and output rescaled to it. A rank
+    whose keys are all masked brings max NEG_INF and sum 0; its rescale
+    exp(NEG_INF - max) is 0, so it adds nothing and divides nothing while
+    any rank holds a valid key."""
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    a = torch.exp(m - top)
+    both = torch.cat([(l * a)[..., None], o * a[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    return both[..., 1:] / both[..., :1]
+
+
+def _attend(logits, valid, apply_v, group=None):
+    """softmax(``logits`` masked by ``valid``, None: none masked) over the
+    last dim, applied to the values by ``apply_v``. With ``group`` this
+    rank holds one block of the keys (a cache's S rows over ``model``):
+    its partial softmax goes through ``split_k_combine``."""
+    if valid is not None:
+        logits = torch.where(valid, logits, NEG_INF)
+    if group is None:
+        return apply_v(torch.softmax(logits, dim=-1))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    return split_k_combine(m, p.sum(dim=-1), apply_v(p), group)
+
+
+def decode_attention(q, k_cache, v_cache, t, *, window: int = 0,
+                     offset: int = 0, group=None):
+    """Single-token attention over a (B,S,kv,hd) cache, valid length t.
+    ``offset`` is the global position of the cache's first row and
+    ``group`` the ranks holding the other rows (``split_k_combine``)."""
     b, s, kvh, hd = k_cache.shape
     h = q.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd)
     logits = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                           k_cache.float()) / np.sqrt(hd)
-    kpos = torch.arange(s, device=q.device)
+    kpos = offset + torch.arange(s, device=q.device)
     valid = kpos < t
     if window > 0:
         valid &= kpos >= t - window
-    logits = torch.where(valid, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    o = _attend(logits, valid, lambda p: torch.einsum(
+        "bkgs,bskh->bkgh", p, v_cache.float()), group)
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 
@@ -305,8 +347,13 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     decoder): k/v are projected from it, no positions apply, and it attends
     with the plain ``full_attention``, as the reference does (K3 takes q,
     k and v of one length). Returns (out, cache). On a sequence block x
-    is this rank's block and ``positions`` the whole sequence's."""
-    blk = seq_block() if cache is None else None
+    is this rank's block and ``positions`` the whole sequence's.
+
+    Under a serving ``CacheBlock`` whose cache holds an S block of
+    ``max_len`` rows (``sharding.use_cache_block``), a prompt writes every
+    head of the rows of its block (``write_prompt``) and a decode step
+    attends over them (``decode_attention``'s split-K combine)."""
+    blk = seq_block()
     if blk is not None:
         x = blk.gather_seq(x)
     b, s, d = x.shape
@@ -314,8 +361,9 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     src = x if kv_source is None else kv_source
     w = Heads.of(p, cfg, blk)
     q = torch.einsum("bsd,dhk->bshk", x, w.wq)
-    k, v = w.kv(torch.einsum("bsd,dhk->bshk", src, w.wk),
-                torch.einsum("bsd,dhk->bshk", src, w.wv))
+    k_kv, v_kv = (torch.einsum("bsd,dhk->bshk", src, w.wk),
+                  torch.einsum("bsd,dhk->bshk", src, w.wv))
+    k, v = w.kv(k_kv, v_kv)
     q, k, v = _constrain_qkv(q, k, v)
     if kv_source is not None:
         o = full_attention(q, k, v, causal=False)
@@ -324,16 +372,30 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
 
     if cache is not None:
-        _check_prompt_at(s, t)
-        cache["k"][:, t:t + s] = k.to(cache["k"].dtype)
-        cache["v"][:, t:t + s] = v.to(cache["v"].dtype)
-        if s == 1:  # decode: one token at position t
+        cb = current_cache_block()
+        own = cb.share(cb.max_len) if cb is not None else None
+        _check_prompt_at(s, t, cb.max_len if cb is not None
+                         else cache["k"].shape[1])
+        if s == 1:  # decode: the rank that holds row t writes it
+            offset = own.start if own is not None else 0
+            if offset <= t < offset + cache["k"].shape[1]:
+                cache["k"][:, t - offset] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][:, t - offset] = v[:, 0].to(cache["v"].dtype)
             o = decode_attention(q, cache["k"], cache["v"], t + 1,
-                                 window=window)
-        elif window:  # prompt into the cache, the reference's plain route
-            o = chunked_attention(q, k, v, causal=causal, window=window)
-        else:       # prompt into the cache
-            o = _flash(q, k, v, causal=causal)
+                                 window=window, offset=offset,
+                                 group=cb.group if own is not None else None)
+        else:
+            if w.kv_idx is not None:    # every kv head, as the cache holds
+                k_kv = L.positional(k_kv, positions, cfg.pos_kind,
+                                    cfg.rope_theta)
+            else:
+                k_kv, v_kv = k, v
+            write_prompt(cache, {"k": k_kv, "v": v_kv}, cb,
+                         blk if w.split and w.kv_idx is None else None)
+            if window:  # the reference's plain route
+                o = chunked_attention(q, k, v, causal=causal, window=window)
+            else:
+                o = _flash(q, k, v, causal=causal)
     elif window:
         o = plain_attention(q, k, v, causal=causal, window=window)
     else:
@@ -341,8 +403,35 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo)), cache
 
 
-def _check_prompt_at(s: int, t) -> None:
-    """A cache update needs t; a prompt (s > 1) must start the cache."""
+def write_prompt(cache, new: dict, cb, heads=None) -> None:
+    """Write a prompt's S rows (at t = 0) of each ``new`` leaf (B, S, ...)
+    into ``cache``: where the ``CacheBlock`` ``cb`` splits the cache's
+    ``max_len`` rows over ``model``, only the rows of this rank's block
+    (the rows [r·max_len/m, (r+1)·max_len/m) of the prompt, none where
+    the prompt ends before it: a prompt shorter than max_len/m lands
+    whole on rank 0's block, correct but unbalanced). ``heads``: the
+    sequence block whose ``model`` axis split dim 2 (the kv heads) of each
+    leaf; every head of this rank's rows is then fetched from the others,
+    the exchange from (S, H/m) to (S block, H) by one all-to-all
+    (``CacheBlock.to_owners``), or gathered where the cache is whole."""
+    for key, val in new.items():
+        s = val.shape[1]
+        own = cb.share(cb.max_len) if cb is not None else None
+        if own is None:
+            if heads is not None:
+                val = heads.gather_plain(val, 2)
+        elif heads is not None:
+            owner = torch.arange(s, device=val.device) // (own.stop
+                                                           - own.start)
+            val = cb.to_owners(val, owner)
+        else:
+            val = val[:, min(own.start, s):min(own.stop, s)]
+        cache[key][:, :val.shape[1]] = val.to(cache[key].dtype)
+
+
+def _check_prompt_at(s: int, t, rows: int) -> None:
+    """A cache update needs t; a prompt (s > 1) must start the cache; and
+    the tokens must fit its ``rows`` (the global max_len)."""
     if t is None:
         raise ValueError("cache update requires t")
     if s > 1 and t > 0:
@@ -350,6 +439,11 @@ def _check_prompt_at(s: int, t) -> None:
             f"a prompt of {s} tokens into a cache at t = {t} > 0: the "
             "reference attends there as if t were 0 (ROADMAP queue 3, "
             "fault 8); prefill at t = 0 and decode one token a step")
+    if t + s > rows:
+        raise ValueError(
+            f"{s} tokens at t = {t} past a cache of {rows} rows: the "
+            "reference clamps the write into the last rows (ROADMAP queue "
+            "3, fault 17)")
 
 
 def _pick_block(sq: int, sk: int, target: int = 1024) -> int:
@@ -388,11 +482,15 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     ``mla_decode="absorbed"`` (the reference's default), or over K/V
     expanded from the cached latents under ``"expand"``.
 
-    On a sequence block (no cache) the latents of this rank's positions
-    are gathered over ``model`` and this rank's heads expanded from them."""
+    On a sequence block the latents of this rank's positions are gathered
+    over ``model`` and this rank's heads expanded from them; a prompt then
+    writes the rows of its cache block (``write_prompt``). Under a
+    serving ``CacheBlock`` that splits the cache's rows, a decode step
+    attends over this rank's rows, in either route, through
+    ``split_k_combine``."""
     m = cfg.mla
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
-    blk = seq_block() if cache is None else None
+    blk = seq_block()
     q_lat = L.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"])
     kv_a = x @ p["wkv_a"]                                    # (B,S,r+dr)
     if blk is not None:
@@ -413,15 +511,35 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     k_rope = L.apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :],
                           positions, cfg.rope_theta)[:, :, 0, :]
 
+    group, offset = None, 0
     if cache is not None:
-        _check_prompt_at(s, t)
-        cache["ckv"][:, t:t + s] = c_kv.to(cache["ckv"].dtype)
-        cache["krope"][:, t:t + s] = k_rope.to(cache["krope"].dtype)
-        c_kv = cache["ckv"][:, :t + s]        # what the cache holds, as the
-        k_rope = cache["krope"][:, :t + s]    # reference reads it back
+        cb = current_cache_block()
+        own = cb.share(cb.max_len) if cb is not None else None
+        _check_prompt_at(s, t, cb.max_len if cb is not None
+                         else cache["ckv"].shape[1])
+        if own is None:
+            cache["ckv"][:, t:t + s] = c_kv.to(cache["ckv"].dtype)
+            cache["krope"][:, t:t + s] = k_rope.to(cache["krope"].dtype)
+            c_kv = cache["ckv"][:, :t + s]    # what the cache holds, as the
+            k_rope = cache["krope"][:, :t + s]  # reference reads it back
+        elif s == 1:    # the rank holding row t writes it; attend over the
+            if own.start <= t < own.stop:     # rows of this rank's block
+                cache["ckv"][:, t - own.start] = c_kv[:, 0].to(
+                    cache["ckv"].dtype)
+                cache["krope"][:, t - own.start] = k_rope[:, 0].to(
+                    cache["krope"].dtype)
+            c_kv, k_rope = cache["ckv"], cache["krope"]
+            group, offset = cb.group, own.start
+        else:           # every rank holds the gathered prompt's latents
+            write_prompt(cache, {"ckv": c_kv, "krope": k_rope}, cb)
+            c_kv = c_kv.to(cache["ckv"].dtype)
+            k_rope = k_rope.to(cache["krope"].dtype)
         if s == 1 and cfg.mla_decode == "absorbed":
+            valid = None if group is None else (
+                offset + torch.arange(c_kv.shape[1], device=x.device)
+                < t + 1)
             o = _mla_absorbed_decode(q_nope, q_rope, c_kv, k_rope,
-                                     p["wkv_b"], dn, x.dtype)
+                                     p["wkv_b"], dn, x.dtype, valid, group)
             return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
     # expand k/v from the latents
@@ -432,17 +550,22 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     qq = torch.cat([q_nope, q_rope], dim=-1)
     qq, k, vv = _constrain_qkv(qq, k, vv)
     if cache is not None and s == 1:
-        o = decode_attention(qq, k, _pad_v(vv, dn + dr), t + 1)[..., :dv]
+        o = decode_attention(qq, k, _pad_v(vv, dn + dr), t + 1,
+                             offset=offset, group=group)[..., :dv]
     else:
         o = _flash(qq, k, _pad_v(vv, dn + dr), causal=causal)[..., :dv]
     return _to_block(torch.einsum("bshk,hkd->bsd", o, wo), blk,
                      hs is not None), cache
 
 
-def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype):
+def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype,
+                         valid=None, group=None):
     """One token's attention in the latent space: the score is
     (q_nope W_k^T) . c_kv + q_rope . k_rope, and the output
-    (p . c_kv) W_v, so K/V are never expanded over the cache."""
+    (p . c_kv) W_v, so K/V are never expanded over the cache. ``valid``
+    (T,) masks the cache's rows; with ``group`` the rows are this rank's
+    block and the latent output is combined over the ranks
+    (``split_k_combine``)."""
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]     # (r,H,dn), (r,H,dv)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_k)      # (B,1,H,r)
     scale = 1.0 / np.sqrt(dn + q_rope.shape[-1])
@@ -450,8 +573,8 @@ def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype):
     logits = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_f)
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              krope.float())) * scale          # (B,H,1,T)
-    pr = torch.softmax(logits, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", pr, ckv_f)
+    o_lat = _attend(logits, valid, lambda pr: torch.einsum(
+        "bhst,btr->bhsr", pr, ckv_f), group).transpose(1, 2)
     return torch.einsum("bshr,rhv->bshv", o_lat.to(dtype), w_v)
 
 

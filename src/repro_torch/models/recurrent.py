@@ -26,6 +26,13 @@ scan this rank's heads (WKV6) or channels (RG-LRU) over the whole
 sequence, and hands the result back: the norm after WKV6 is a layernorm
 over all of D, so it runs on the sequence block. Where ``model`` does not
 divide the heads or channels, every rank scans all of them.
+
+Serving under a ``CacheBlock`` (``sharding.use_cache_block``) holds this
+rank's heads of the WKV state and its block of the width of ``x_last_*``,
+``h`` and ``conv``: the scans run those heads or channels from this
+rank's state, the shift and the conv read the whole carries gathered
+over ``model``, and the carries written back are this rank's block of
+the global last rows.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import seq_block
+from repro_torch.models.sharding import current_cache_block, seq_block
 
 RWKV_LORA = 32
 DECAY_LORA = 64
@@ -220,14 +227,37 @@ class WKV6(torch.autograd.Function):
 
 
 def _shifted(x, x_last):
-    """The previous token of each position: x_last (or zeros, or on a
-    sequence block the previous block's last) first."""
+    """The previous token of each position: x_last (or zeros) first, on a
+    sequence block the previous block's last (x_last before the first
+    block)."""
+    blk = seq_block()
+    if blk is not None:
+        return torch.cat([blk.halo(x, 1, None if x_last is None else
+                                   x_last[:, None]), x[:, :-1]], dim=1)
     if x_last is None:
-        blk = seq_block()
-        if blk is not None:
-            return torch.cat([blk.halo(x, 1), x[:, :-1]], dim=1)
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _whole(t, cb, n: int):
+    """A cache leaf of global width ``n`` (its last dim) whole: gathered
+    over ``model`` where the ``CacheBlock`` ``cb`` splits it."""
+    if cb is None or cb.share(n) is None:
+        return t
+    return cb.gather(t, -1)
+
+
+def _own(t, cb, n: int):
+    """The part of ``t`` (width ``n`` in its last dim) that this rank's
+    cache shard holds: its block where ``cb`` splits the width."""
+    ws = cb.share(n) if cb is not None else None
+    return t if ws is None else t[..., ws]
+
+
+def _last(x, blk):
+    """The global sequence's last position of ``x`` (B, S, ...): on a
+    sequence block the last block's."""
+    return x[:, -1] if blk is None else blk.from_last(x[:, -1])
 
 
 def _to_scan(blk, ts, n: int):
@@ -247,11 +277,22 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
     (out, (state, x_last)). A multi-token call overwrites ``state`` with the
     final state (``ops.rwkv6_scan``), or, while autograd records, returns
     it as a new tensor of the graph (``WKV6``); a one-token step returns a
-    new one."""
+    new one.
+
+    Under a serving ``CacheBlock`` (state given) the caches hold this
+    rank's block of the heads of ``state`` and of the width of ``x_last``
+    where ``model`` divides them: the scan (K4, or the one-token step)
+    runs this rank's heads from its state, on a sequence block by the
+    all-to-all, else sliced from the whole sequence; the heads come back
+    for the layernorm over D, and the returned ``x_last`` is this rank's
+    block of the global last position's row."""
     b, s, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
-    blk = seq_block() if state is None and x_last is None else None
+    blk = seq_block()
+    cb = current_cache_block() if state is not None else None
+    if cb is not None:
+        x_last = _whole(x_last, cb, d)
     r, k, v, g, w_log = _rwkv6_projections(x, _shifted(x, x_last), p)
     rh, kh, vh, wh = (a.reshape(b, s, h, n) for a in (r, k, v, w_log))
     u, back = p["u"], None
@@ -260,11 +301,16 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
         hs = blk.share(h)
         u = u if hs is None else u[hs]
         s = rh.shape[1]
+    elif cb is not None and cb.share(h) is not None:   # the state's heads
+        hs = cb.share(h)
+        rh, kh, vh, wh = (a[:, :, hs] for a in (rh, kh, vh, wh))
+        u = u[hs]
+        back = lambda o: cb.gather(o, 2)               # noqa: E731
     if state is None:
         state = torch.zeros(b, u.shape[0], n, n, device=x.device)
     if s == 1:
-        o, state = rwkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
-                              p["u"], state)
+        o, state = rwkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0], u,
+                              state)
         o = o[:, None]
     else:
         c = max(chunk if s % chunk == 0 else int(np.gcd(s, chunk)), 1)
@@ -278,7 +324,8 @@ def rwkv6_forward(x, p, cfg, *, state=None, x_last=None, chunk: int = 32):
     o2 = L.layernorm(o2.to(x.dtype), p["ln_out"]["scale"],
                      p["ln_out"]["bias"])                      # group-norm approx
     out = (o2 * g) @ p["wo"]
-    return out, (state, x[:, -1].float())
+    last = x[:, -1] if cb is None else _own(_last(x, blk), cb, d)
+    return out, (state, last.float())
 
 
 def init_rwkv6_cmix(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
@@ -295,10 +342,18 @@ def init_rwkv6_cmix(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
 
 
 def rwkv6_cmix(x, p, *, x_last=None):
+    """The channel mix; under a serving ``CacheBlock`` (x_last given)
+    ``x_last`` and the returned last row are this rank's block of D, as
+    ``rwkv6_forward``'s."""
+    cb = current_cache_block() if x_last is not None else None
+    d = x.shape[-1]
+    if cb is not None:
+        x_last = _whole(x_last, cb, d)
     x_prev = _shifted(x, x_last)
     xk = x + (x_prev - x) * p["mu_k"].to(x.dtype)
     h = torch.square(F.relu(xk @ p["wk"]))
-    return h @ p["wv"], x[:, -1].float()
+    last = x[:, -1] if cb is None else _own(_last(x, seq_block()), cb, d)
+    return h @ p["wv"], last.float()
 
 
 # ===================================================================== #
@@ -396,43 +451,62 @@ def rglru_forward(x, p, cfg, *, state=None):
 
     state: dict(h (B,W) f32, conv (B,CW-1,W) f32) or None.
     Returns (out, new_state): on a sequence block, h at its last position.
-    """
+
+    Under a serving ``CacheBlock`` (state given) the caches hold this
+    rank's block of the width W of ``h`` and ``conv`` where ``model``
+    divides it: the recurrence (K5, or the one-token step) runs this
+    rank's channels from its ``h``, on a sequence block by the all-to-all,
+    else sliced from the whole sequence, and the channels come back for
+    the output projection; the returned ``h`` is taken before they come
+    back, and ``conv`` is this rank's block of the global prompt's last
+    CW - 1 rows of the conv's input."""
     b, s, d = x.shape
     w = cfg.lru_width
-    blk = seq_block() if state is None else None
+    blk = seq_block()
+    cb = current_cache_block() if state is not None else None
+    carry = state is not None
     if state is None:
         state = {"h": torch.zeros(b, w, device=x.device),
                  "conv": torch.zeros(b, CONV_WIDTH - 1, w, device=x.device)}
+    conv = _whole(state["conv"], cb, w)
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")         # (B,S,W)
     u = x @ p["w_in"]
     u, conv_state = _causal_conv1d(
-        u, p["conv"], state["conv"] if blk is None else
-        blk.halo(u, CONV_WIDTH - 1))
+        u, p["conv"], conv if blk is None else
+        blk.halo(u, CONV_WIDTH - 1, conv if carry else None))
     uf = u.float()
     r = torch.sigmoid(u @ p["w_a"]).float()                    # recurrence gate
     i = torch.sigmoid(u @ p["w_x"]).float()                    # input gate
     a_log = -LRU_C * F.softplus(p["lam"]) * r                  # (B,S,W) <= 0
     xin = i * uf
-    if s == 1:
+    h0, back = state["h"], None
+    if blk is not None:       # this rank's channels over the whole sequence
+        (xin, a_log), back = _to_scan(blk, (xin, a_log), w)
+        if not carry:
+            h0 = torch.zeros(b, xin.shape[2], device=x.device)
+    elif cb is not None and cb.share(w) is not None:   # the cache's channels
+        xin, a_log = _own(xin, cb, w), _own(a_log, cb, w)
+        back = lambda y: cb.gather(y, -1)              # noqa: E731
+    if xin.shape[1] == 1:
         a = torch.exp(a_log[:, 0])
-        h = a * state["h"] + torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) \
+        h = a * h0 + torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) \
             * xin[:, 0]
         y = h[:, None]
-        h_last = h
     else:
         # one block over the whole call: the reference model scans any S,
         # and the chunk/bw tiling checks belong to the TPU kernel's grid
-        h0, back = state["h"], None
-        if blk is not None:   # this rank's channels over the whole sequence
-            (xin, a_log), back = _to_scan(blk, (xin, a_log), w)
-            h0 = torch.zeros(b, xin.shape[2], device=x.device)
         if L.records_grad(xin, a_log, h0):
             y = RGLRU.apply(xin, a_log, h0)
         else:
             y = ops.rg_lru(xin, a_log, chunk=xin.shape[1], bw=xin.shape[2],
                            h0=h0)
-        if back is not None:
-            y = back(y)
+    h_last = y[:, -1]
+    if back is not None:
+        y = back(y)
+    if blk is not None and not carry:
         h_last = y[:, -1]
+    if cb is not None:
+        conv_state = _own(conv_state if blk is None else
+                          blk.from_last(conv_state), cb, w)
     out = (y.to(x.dtype) * gate) @ p["w_out"]
     return out, {"h": h_last, "conv": conv_state}

@@ -29,6 +29,16 @@ collectives (``gather_seq``, ``scatter_seq``, ``seq_to_heads``,
 ``heads_to_seq``, ``halo``), so attention and the scans run on this rank's
 heads or channels over the whole sequence.
 
+Serving splits the same way (``launch/steps.py``'s prefill and decode
+steps). Each rank holds only its shard of the decode caches, laid out by
+``cache_shardings`` (``CacheBlock``, ``cache_block``, ``use_cache_block``):
+a prefill runs on the token block and writes the cache rows, heads or
+channels of this rank's shard; a decode step runs this rank's dp rows
+over the whole residual stream (one token is not split over the
+sequence) and reads its cache shard, attention over an S-split cache
+combining the ranks' partial softmaxes over ``model``. The collectives
+there run outside autograd, under ``inference_mode``.
+
 Every rank differentiates its own share of the global loss, so the
 gradient of a tensor that several ranks hold is the sum of their parts,
 and the train step sums the parameters' parts over the whole block grid
@@ -187,21 +197,26 @@ class TokenBlock:
         ...)."""
         return _AllToAll.apply(t, self.seq_group, 1, dim)
 
-    def halo(self, t, rows: int):
+    def halo(self, t, rows: int, initial=None):
         """The ``rows`` positions of the global sequence before this block
-        of ``t`` (B, S/m, ...), zeros before the first block: every
-        block's last rows gathered, so every rank's graph holds the same
-        collectives."""
+        of ``t`` (B, S/m, ...), ``initial`` (B, rows, ...) before the first
+        block (zeros if None): every block's last rows gathered, so every
+        rank's graph holds the same collectives."""
         r = min(rows, t.shape[1])
         tails = self.gather_seq(t[:, -r:])
-        prev = torch.cat([t.new_zeros((t.shape[0], rows) + t.shape[2:]),
-                          tails], dim=1)
+        first = (t.new_zeros((t.shape[0], rows) + t.shape[2:])
+                 if initial is None else initial.to(t.dtype))
+        prev = torch.cat([first, tails], dim=1)
         end = rows + self.seq_index * r
         return prev[:, end - rows:end]
 
     def gather_plain(self, t, dim: int = 1):
         """``gather_seq`` of a tensor that carries no gradient."""
         return _all_gather(t, self.seq_group, dim)
+
+    def from_last(self, t):
+        """The last sequence block's ``t``, on every rank of ``model``."""
+        return _all_gather(t[None], self.seq_group, 0)[-1]
 
 
 def _all_gather(t, group, dim):
@@ -306,6 +321,98 @@ def token_block(mesh, batch: int, seq: int):
     return dataclasses.replace(rows, seq_index=_coordinates(mesh)["model"],
                                seq_size=axis_size(mesh, "model"),
                                seq_group=mesh.get_group("model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheBlock:
+    """This rank's shard of the decode caches over ``model``: coordinate
+    ``index`` of ``size``, ``group`` the axis's process group, for caches
+    of ``max_len`` rows. ``cache_shardings`` splits a leaf's S rows, heads
+    or width over ``model`` where ``size`` divides them (``share``) and
+    leaves it whole where it does not; the rows over the dp axes follow
+    ``dp_block``."""
+    index: int
+    size: int
+    group: object
+    max_len: int
+
+    def share(self, n: int):
+        """This rank's slice of ``n`` rows, heads or channels of a cache
+        leaf, or None where ``size`` does not divide ``n`` (the leaf is
+        whole on every rank)."""
+        if n % self.size:
+            return None
+        per = n // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+    def gather(self, t, dim: int):
+        """The whole of ``t``, this rank's block along ``dim``."""
+        return _all_gather(t, self.group, dim)
+
+    def to_owners(self, t, owner):
+        """Every head of the rows this rank owns, by one all-to-all: ``t``
+        (B, R, h, ...) holds this rank's block of the H = h·size heads of R
+        rows, ``owner`` (R,) the rank that owns each row, non-decreasing;
+        -> (B, R_own, H, ...), this rank's rows in order."""
+        counts = torch.bincount(owner, minlength=self.size).tolist()
+        mine = counts[self.index]
+        src = t.movedim(1, 0).contiguous()             # (R, B, h, ...)
+        out = src.new_empty((mine * self.size,) + src.shape[1:])
+        dist.all_to_all_single(out, src, [mine] * self.size, counts,
+                               group=self.group)
+        # (size, R_own, B, h, ...): the senders' heads, in rank order
+        out = out.unflatten(0, (self.size, mine)).movedim(0, 2)
+        return out.flatten(2, 3).movedim(0, 1)
+
+
+def cache_block(mesh, max_len: int):
+    """The ``CacheBlock`` of this rank for caches of ``max_len`` rows on
+    ``mesh``, or None where every rank holds the whole caches over
+    ``model``: no mesh, a ``ShapeMesh`` (the dry run holds every shard),
+    or a ``model`` axis of size 1. The serving steps run the model under
+    it (``use_cache_block``) and ``transformer.init_decode_caches``
+    allocates only its shard of each leaf."""
+    if mesh is None or isinstance(mesh, ShapeMesh) or \
+            axis_size(mesh, "model") == 1:
+        return None
+    if current_layout() != "2d":
+        raise ValueError(f"serving splits the caches over 'model' in the "
+                         f"2d layout only, not {current_layout()!r}")
+    if mesh.mesh_dim_names[-1] != "model":
+        raise ValueError(f"'model' must be the mesh's last axis: "
+                         f"{mesh.mesh_dim_names}")
+    if max_len is None:
+        raise ValueError("a serving step on a 'model' axis of size "
+                         f"{axis_size(mesh, 'model')} needs the caches' "
+                         "global max_len")
+    return CacheBlock(_coordinates(mesh)["model"], axis_size(mesh, "model"),
+                      mesh.get_group("model"), max_len)
+
+
+def current_cache_block():
+    """The ``CacheBlock`` the running serving step holds, or None (whole
+    caches)."""
+    return getattr(_CTX, "cache_block", None)
+
+
+@contextlib.contextmanager
+def use_cache_block(block):
+    """Run the model on caches of which this rank holds ``block``: a
+    mixer given a cache writes only the rows, heads or channels its shard
+    holds, and decode attention over an S-split cache combines the ranks'
+    partial softmaxes (``attention.split_k_combine``)."""
+    prev = getattr(_CTX, "cache_block", None)
+    _CTX.cache_block = block
+    try:
+        yield
+    finally:
+        _CTX.cache_block = prev
+
+
+def local_shape(shape, sharding: "NamedSharding") -> tuple:
+    """The shape of one device's shard of a leaf of ``shape``."""
+    return tuple(n // axis_size(sharding.mesh, e) if e is not None else n
+                 for n, e in zip(shape, sharding.spec))
 
 
 def current_dp_block():

@@ -31,6 +31,11 @@ block ``moe_ffn_ep_block``; each trains with the bf16 exchange and refuses
 the int8 one under autograd) under the reference's condition: ``moe_impl
 == "ep"`` and a ``use_mesh`` mesh in the ``2d`` layout whose ``model`` axis
 is > 1 and divides S; else ``moe_ffn`` with ``moe_group``.
+
+Serving under a mesh (``launch/steps.py``) runs ``prefill`` on the same
+token block and ``decode_step`` on this rank's dp rows, each mixer given
+this rank's shard of its cache (``sharding.use_cache_block``;
+``init_decode_caches`` allocates the shards under a ``DeviceMesh``).
 """
 from __future__ import annotations
 
@@ -44,10 +49,13 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
-from repro_torch.models.sharding import (axis_size, constrain,
+from repro_torch.models.sharding import (ShapeMesh, axis_size,
+                                         cache_block, cache_shardings,
+                                         constrain,
+                                         current_cache_block,
                                          current_dp_block, current_layout,
-                                         current_mesh, seq_block,
-                                         use_dp_block, use_mesh)
+                                         current_mesh, local_shape,
+                                         seq_block, use_dp_block, use_mesh)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -165,21 +173,43 @@ def _init_block_cache(cfg, sig, batch, max_len, *, dtype, device, lead,
     return c
 
 
-def _local_ring_update(cache, k_new, v_new, positions):
-    """Write (B,S,kv,hd) tokens at ring slots pos % W, in place."""
-    w = cache["k"].shape[1]
+def _local_ring_update(cache, k_new, v_new, positions, cb=None,
+                       heads=None):
+    """Write (B,S,kv,hd) tokens at ring slots pos % W, in place. Under a
+    ``CacheBlock`` ``cb`` that splits the ring's W slots over ``model``
+    this rank writes only the slots it holds; ``heads``: the sequence
+    block whose ``model`` axis split the kv heads of ``k_new``/``v_new``,
+    whose every head of this rank's slots is fetched first. ``pos`` is
+    replicated: every rank writes all of it."""
+    w = cache["pos"].shape[0]
     if k_new.shape[1] >= w:
         k_new, v_new = k_new[:, -w:], v_new[:, -w:]
         positions = positions[-w:]
     slots = positions % w
-    cache["k"][:, slots] = k_new.to(cache["k"].dtype)
-    cache["v"][:, slots] = v_new.to(cache["v"].dtype)
+    own = cb.share(w) if cb is not None else None
+    if own is None:
+        if heads is not None:
+            k_new, v_new = (heads.gather_plain(a, 2) for a in (k_new, v_new))
+        cache["k"][:, slots] = k_new.to(cache["k"].dtype)
+        cache["v"][:, slots] = v_new.to(cache["v"].dtype)
+    else:
+        owner = slots // (own.stop - own.start)
+        order = torch.argsort(owner, stable=True)
+        owner, slots_o = owner[order], slots[order]
+        mine = slots_o[owner == cb.index] - own.start
+        for key, val in (("k", k_new), ("v", v_new)):
+            val = val[:, order]
+            val = cb.to_owners(val, owner) if heads is not None else \
+                val[:, owner == cb.index]
+            cache[key][:, mine] = val.to(cache[key].dtype)
     cache["pos"][slots] = positions.to(cache["pos"].dtype)
     return cache
 
 
-def _local_ring_attend(q, cache, t, window):
-    """Decode attention over a ring cache with stored absolute positions."""
+def _local_ring_attend(q, cache, t, window, cb=None):
+    """Decode attention over a ring cache with stored absolute positions;
+    under a ``CacheBlock`` that splits the slots, over this rank's slots
+    (``attention.split_k_combine``)."""
     b, _, h, hd = q.shape
     kvh = cache["k"].shape[2]
     g = h // kvh
@@ -188,10 +218,13 @@ def _local_ring_attend(q, cache, t, window):
     logits = torch.einsum("bkgh,bskh->bkgs", qg.float(),
                           cache["k"].float()) * scale
     pos = cache["pos"]
+    own = cb.share(pos.shape[0]) if cb is not None else None
+    if own is not None:
+        pos = pos[own]
     valid = (pos >= 0) & (pos <= t) & (pos > t - window)
-    logits = torch.where(valid, logits, A.NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, cache["v"].float())
+    o = A._attend(logits, valid, lambda p: torch.einsum(
+        "bkgs,bskh->bkgh", p, cache["v"].float()),
+        cb.group if own is not None else None)
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 
@@ -200,22 +233,32 @@ def _local_attention_block(x, p, cfg, positions, cache, t):
     plain attention functions, as the reference runs it (no kernel: K3
     takes neither a window nor head_dim 256, ROADMAP queue 1, item 18).
     On a sequence block, this rank's heads over the whole sequence, as
-    ``attention.gqa_forward``."""
-    blk = seq_block() if cache is None else None
+    ``attention.gqa_forward``; under a serving ``CacheBlock`` the ring's
+    slots are split over ``model`` where m divides W."""
+    blk = seq_block()
     if blk is not None:
         x = blk.gather_seq(x)
     b, s, d = x.shape
     w = A.Heads.of(p, cfg, blk)
     q = torch.einsum("bsd,dhk->bshk", x, w.wq)
-    k, v = w.kv(torch.einsum("bsd,dhk->bshk", x, w.wk),
-                torch.einsum("bsd,dhk->bshk", x, w.wv))
+    k_kv, v_kv = (torch.einsum("bsd,dhk->bshk", x, w.wk),
+                  torch.einsum("bsd,dhk->bshk", x, w.wv))
+    k, v = w.kv(k_kv, v_kv)
     q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
     k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
     if cache is not None:
+        cb = current_cache_block()
         pos_vec = positions[0] if positions.ndim == 2 else positions
-        _local_ring_update(cache, k, v, pos_vec)
+        if w.kv_idx is not None:        # every kv head, as the cache holds
+            k_kv = L.positional(k_kv, positions, cfg.pos_kind,
+                                cfg.rope_theta)
+        else:
+            k_kv, v_kv = k, v
+        _local_ring_update(cache, k_kv, v_kv, pos_vec, cb,
+                           blk if w.split and w.kv_idx is None else None)
         if s == 1:
-            o = _local_ring_attend(q, cache, pos_vec[-1], cfg.local_window)
+            o = _local_ring_attend(q, cache, pos_vec[-1], cfg.local_window,
+                                   cb)
         else:
             blk = A._pick_block(s, s)
             o = A.chunked_attention(q, k, v, causal=True,
@@ -605,7 +648,35 @@ def train_loss(params, cfg, batch, *, moe_group: int = 0):
 @torch.inference_mode()
 def init_decode_caches(cfg, batch: int, max_len: int, dtype=None,
                        device="cuda"):
+    """Zeroed decode caches (a ring's ``pos`` -1) for ``batch`` rows of
+    ``max_len`` positions. Under a ``use_mesh`` ``DeviceMesh`` only this
+    rank's shard of each leaf, of the shape ``sharding.cache_shardings``
+    gives it (rows over dp, S rows, heads or width over ``model``, each
+    where the axis divides it); with no mesh or on a ``ShapeMesh`` (the
+    dry run), the whole caches."""
     dtype = _torch_dtype(dtype or cfg.dtype)
+    mesh = current_mesh()
+    if mesh is None or isinstance(mesh, ShapeMesh):
+        return _whole_caches(cfg, batch, max_len, dtype, device)
+    cache_block(mesh, max_len)            # the layouts it serves
+    whole = _whole_caches(cfg, batch, max_len, dtype, "meta")
+
+    def shard(leaf, sharding, name):
+        return torch.full(local_shape(leaf.shape, sharding),
+                          -1 if name == "pos" else 0, dtype=leaf.dtype,
+                          device=device)
+    return _zip_map(shard, whole, cache_shardings(whole, mesh))
+
+
+def _zip_map(fn, tree, other, name=None):
+    """``fn(leaf, other's leaf, leaf's key)`` over two trees of dicts of
+    one structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k], k) for k, v in tree.items()}
+    return fn(tree, other, name)
+
+
+def _whole_caches(cfg, batch, max_len, dtype, device):
     cross_len = cfg.encoder_seq if cfg.is_encoder_decoder else 0
     caches = {}
     for si, st in enumerate(stage_plan(cfg)):
@@ -621,13 +692,21 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params, cfg, batch, caches):
-    """Run the full prompt through the model, filling caches. t=0 start."""
+    """Run the full prompt through the model, filling caches. t=0 start.
+    Under the serving step's token block (``launch.steps.make_prefill_step``)
+    ``batch`` is this rank's block and the logits its (B/d, S/m, V) block:
+    its dp rows and sequence block over the whole vocabulary (not the
+    reference's vocabulary split); ``caches`` are this rank's shards."""
     logits, caches, _ = forward(params, cfg, batch, caches=caches, t=0)
     return logits, caches
 
 
 def decode_step(params, cfg, caches, token, t: int):
-    """token: (B,) int; t: current length. -> (logits (B, V), caches)."""
+    """token: (B,) int; t: current length. -> (logits (B, V), caches).
+    Under the serving step (``launch.steps.make_serve_step``) ``token``
+    is this rank's dp rows, the residual stream whole over ``model``, and
+    the logits (B/d, V) whole over the vocabulary on every ``model``
+    rank."""
     logits, caches, _ = forward(params, cfg, {"tokens": token[:, None]},
                                 caches=caches, t=t)
     return logits[:, 0], caches
