@@ -8,8 +8,9 @@ version, drives the port's main paths, and prints what it measured.
 Phases, each asserting (a failure exits non-zero and prints no result):
   1. device check, ``nvidia-smi`` name, power limit and maximum SM clock,
      the card's SM count beside the H100 model's, parallel nvcc build of
-     all five kernels with each instance's registers and spills (K3's
-     instances must spill nothing);
+     all six kernels (the five TPU kernels' ports and D1, decode
+     attention) with each instance's registers and spills (K3's instances
+     must spill nothing);
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
@@ -37,25 +38,30 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
      ``ops.sliced_matmul`` at its default slice size, and
      ``SharedPodServer(use_reduced=False)`` on the H100 model serving two
-     full-width phi3-mini-3.8b tenants (a prefill job and a decode job);
-     then the decisions of the H100 and v5e models side by side, the
+     full-width phi3-mini-3.8b tenants (a prefill job and a decode job),
+     D1 launched once a layer per decode run, the decode step profiled
+     alone (``decode_report``: device time, idle share, D1's share, top
+     kernels, peak memory; so in 3b-3e); then the decisions of the H100 and v5e models side by side, the
      spread of drain/serial over alternating passes in this call (serial,
      the drain under each model's decisions), and one drain through the
      port's own ``ServingDaemon``;
   3b. the recurrent path, counted the same way: a second server serving
      full-width rwkv6-1.6b and recurrentgemma-9b tenants (a prefill and a
      decode job each, the two jobs of an arch sharing one set of weights),
-     whose prefill steps run K4 and K5, with the same report;
+     whose prefill steps run K4 and K5 and RecurrentGemma's decode D1 on
+     its ring (12 local layers), with the same report;
   3c. StableLM, counted the same way: full-width stablelm-3b (D = 80; a
      prefill and a decode tenant) and stablelm-12b (D = 160; a prefill
      tenant) served on the H100 model, one arch's weights at a time, K3
-     launched once a layer per prefill run;
+     launched once a layer per prefill run and D1 once a layer per decode
+     run;
   3d. DeepSeek (MLA + MoE), counted the same way: deepseek-v2-236b at full
      width cut to 4 layers (a prefill and a decode tenant) and
      deepseek-v3-671b at full width cut to 4 layers (a prefill tenant),
      served on the H100 model, one arch's weights at a time, with the v5e
      model's decisions beside the H100 one's; K3 launched once a layer per
-     prefill run at D = 192;
+     prefill run at D = 192, D1 never (the absorbed MLA decode attends in
+     its latent space);
   3e. Qwen2-VL and Whisper, counted the same way: full-width, uncut
      qwen2-vl-7b (M-RoPE, 256 patch embeddings replacing the prompt's
      prefix; a prefill and a decode tenant) and whisper-small (encoder over
@@ -63,8 +69,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      decode tenant) served by one server on the H100 model, the v5e
      model's decisions beside its; K3 launched 28 times a Qwen2-VL prefill
      run (<128>) and 24 times a Whisper prefill run (<64>, 12 full in the
-     encoder and 12 causal in the decoder), never at decode; each step
-     profiled alone with its peak memory; ``train_loss`` once on each
+     encoder and 12 causal in the decoder), never at decode, where D1 runs
+     28 times a Qwen2-VL and 24 a Whisper decode run (12 self, 12 over the
+     cross cache); each step profiled alone with its peak memory; ``train_loss`` once on each
      arch's prefill batch, finite;
   2f. (run after 2e) K3, K4 and K5 through their autograd Functions at the
      training path's shapes (phi3-mini's attention at 4096 tokens,
@@ -78,6 +85,14 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      Function (serving runs under ``inference_mode``), K3 <96> and K4 at a
      rank's prefill shard shapes, (1, 8, 2048, 96) and (4, 2048, 8, 64),
      against the plain versions, beside their bounds and SDPA's time;
+  2h. (run after 2g) D1, decode attention, against its plain version at
+     the serving paths' decode shapes (``DECODE_SHAPES``: phi3-mini,
+     Qwen2-VL, StableLM-3B/-12B, Whisper's self and cross caches,
+     RecurrentGemma's ring after a wrap, a window, a rank's row block,
+     one with no valid row, empty splits), bf16 and f32 caches, with
+     kernel, plain and SDPA times beside the bound; at phi3's shape its
+     memory (no copy of the cache), a strided view read in place, and
+     the split and combine kernels' times;
   5. (run after 3e) training, counted the same way: ``make_train_step``
      with the reference's ``OptConfig`` (f32 moments) for 3 steps on one
      repeated batch at full width, under a (1, 1) ``DeviceMesh`` over a
@@ -117,7 +132,8 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   7. (run after 6) the three examples of ``repro_torch.examples``
      (quickstart, multi_tenant_serving, fault_tolerant_training) on the
      card in this process, counted the same way, each under the profiler
-     with its lines logged and its K1, K3 and K4 launches asserted exactly;
+     with its lines logged and its K1, K3, K4 and D1 launches asserted
+     exactly;
   8. (run after 7) serving under the mesh, counted the same way:
      ``make_prefill_step`` and ``make_serve_step`` under a (1, 1)
      ``DeviceMesh`` over a one-rank NCCL group (made for the phase and
@@ -126,7 +142,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      layers, each a prefill of 1 x 2048 into a 1 x 4096 cache and 8
      decode steps of 8 rows over an 8 x 4096 cache holding that prompt;
      every logit and cache leaf ``torch.equal`` across the two, K3, K4 or
-     K5 once a layer of its kind a prefill and never at decode, the step
+     K5 once a layer of its kind a prefill and never at decode, D1 exactly
+     once an attn or local layer a decode step and no other kernel there
+     (none for DeepSeek-V2's absorbed decode), the step
      times side by side, and the per-rank cache bytes of a (1, 4)
      ``ShapeMesh`` (``shard_bytes`` of ``cache_shardings``) beside the
      whole cache's;
@@ -165,12 +183,13 @@ K3_REL_TOL = 1e-2
 K4_REL_TOL = 1e-3
 # the __global__ functions of csrc/*.cu, to find them in a profile: the
 # tensor-core paths of K1, K2 and K3 (bf16) and their FMA paths (f32), K4's
-# two passes and K5's cluster kernel
+# two passes, K5's cluster kernel and D1's split and combine kernels
 KERNEL_SYMBOLS = ("sliced_matmul_wgmma_kernel", "sliced_matmul_kernel",
                   "coschedule_wgmma_kernel", "coschedule_kernel",
                   "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
                   "wkv6_states_kernel", "wkv6_out_kernel",
-                  "rg_lru_cluster_kernel")
+                  "rg_lru_cluster_kernel", "decode_attention_kernel",
+                  "decode_combine_kernel")
 K4_KERNELS = ("wkv6_states_kernel", "wkv6_out_kernel")
 K5_KERNEL = "rg_lru_cluster_kernel"
 K5_OLD_KERNEL = "rg_lru_kernel"        # the per-segment kernel it replaced
@@ -213,7 +232,8 @@ def nvidia_smi(query: str) -> str:
 def ptxas_entries(log_text: str) -> list:
     """From ``nvcc -Xptxas -v`` output, one (instance, registers line,
     stack and spill line) per compiled kernel, the instance shortened from
-    its mangled name (``flash_fwd_wgmma_kernelILi80E``)."""
+    its mangled name (``flash_fwd_wgmma_kernelILi80E``,
+    ``decode_attention_kernelI13__nv_bfloat16Li16ELi1E``)."""
     def instance(line):
         # a mangled name is <length><name>: try each length that ends
         # where a name starts, and keep the one that names a kernel
@@ -221,7 +241,8 @@ def ptxas_entries(log_text: str) -> list:
             for i in range(len(m.group())):
                 name = line[m.end():m.end() + int(m.group()[i:])]
                 if name.endswith("_kernel"):
-                    args = re.match(r"I[^E]*E", line[m.end() + len(name):])
+                    args = re.match(r"I[^E]*E(?:Li\d+E)*",
+                                    line[m.end() + len(name):])
                     return name + (args.group() if args else "")
         return line.strip()
 
@@ -497,6 +518,29 @@ def k3_work(shape, causal: bool, elt: int = 2):
     return 4.0 * d * pairs * b * h, 4 * b * h * s * d * elt
 
 
+def decode_work(b: int, h: int, kv: int, rows: int, d: int, elt: int,
+                q_elt: int = 2):
+    """D1's (FLOPs, bytes) over ``rows`` valid cache rows: two products of
+    2D FLOPs a (query head, row); each valid K and V row read once, q read
+    once, the f32 (m, l, o) written once."""
+    return (4.0 * b * h * rows * d,
+            2 * b * rows * kv * d * elt + b * h * d * q_elt
+            + b * h * (d + 2) * 4)
+
+
+def decode_attn_layers(cfg) -> int:
+    """D1 launches a decode step of ``cfg``: one an attn layer (none where
+    MLA's absorbed decode attends in its latent space), one a local layer
+    (the ring), and one more a decoder layer with cross-attention."""
+    kinds = cfg.layer_kinds()
+    n = kinds.count("local")
+    if cfg.mla is None or cfg.mla_decode != "absorbed":
+        n += kinds.count("attn")
+    if cfg.is_encoder_decoder:
+        n += kinds.count("attn")
+    return n
+
+
 def rel_errs(got, want):
     """(||got - want|| / ||want|| over the whole tensor, the same ratio at
     its worst last-axis row)."""
@@ -662,6 +706,54 @@ SHARD_EXCHANGES = (
     ("rwkv6-1.6b time + channel mix", "rwkv6", (1, 2048), 2048, 0),
     ("recurrentgemma-9b RG-LRU", "rglru", (1, 2048), 4096, 0),
     ("recurrentgemma-9b local MQA", "attn", (1, 2048), 4096, 4096))
+# phase 2h: D1 at the decode shapes of the serving paths: (label, (B, H,
+# kv, S, D), key range [lo, hi), the global position of row 0, whether
+# the rows are a ring's slots, splits (None: the kernel's split_count),
+# cache dtypes). phi3-mini's decode at t = 2048 (hi 2049: the server
+# decodes at job.seq // 2) over its 8 x 4096 cache, with a window of 512,
+# and rank 1's and rank 3's row blocks of a (1, 4) mesh (rank 3 holds no
+# valid row); Qwen2-VL (7 query heads a kv head, D 128), StableLM-3B (D
+# 80) and -12B (4 a kv head, D 160) at the same t; Whisper's self cache at
+# t = 224 and its cross cache (1500 frames); RecurrentGemma's ring after it
+# wrapped (2048 slots holding positions 1..2048, 16 query heads over its 1
+# kv head, D 256); the reduced configs' D 32 (phase 7); and 8 splits of
+# 3 valid rows, 5 of them empty
+DECODE_SHAPES = (
+    ("phi3", (8, 32, 32, 4096, 96), (0, 2049), 0, False, None,
+     ("bf16", "f32")),
+    ("phi3_window", (8, 32, 32, 4096, 96), (2049 - 512, 2049), 0, False,
+     None, ("bf16",)),
+    ("phi3_rank1", (8, 32, 32, 1024, 96), (0, 2049), 1024, False, None,
+     ("bf16",)),
+    ("phi3_rank3", (8, 32, 32, 1024, 96), (0, 2049), 3072, False, None,
+     ("bf16",)),
+    ("qwen2vl", (8, 28, 4, 4096, 128), (0, 2049), 0, False, None,
+     ("bf16", "f32")),
+    ("slm3b", (2, 32, 32, 4096, 80), (0, 2049), 0, False, None, ("bf16",)),
+    ("slm12b", (2, 32, 8, 4096, 160), (0, 2049), 0, False, None,
+     ("bf16", "f32")),
+    ("whisper_self", (32, 12, 12, 448, 64), (0, 225), 0, False, None,
+     ("bf16",)),
+    ("whisper_cross", (32, 12, 12, 1500, 64), (0, 1500), 0, False, None,
+     ("bf16", "f32")),
+    ("rgemma_ring", (8, 16, 1, 2048, 256), (1, 2049), 0, True, None,
+     ("bf16", "f32")),
+    ("reduced_d32", (2, 4, 4, 64, 32), (0, 33), 0, False, None,
+     ("bf16", "f32")),
+    ("empty_splits", (8, 32, 32, 4096, 96), (0, 3), 0, False, 8,
+     ("bf16",)))
+# the shapes whose time phase 2h also takes at other split counts
+DECODE_SWEEP = ("phi3", "qwen2vl", "slm12b", "rgemma_ring")
+# D1's output o / l (and m) against the plain version's: an f32 cache within
+# 5e-4 absolute (ROADMAP item 19); a bf16 one within BF16_TOL. Both compute
+# in f32 from the same values, so they differ in summation order and exp
+DECODE_F32_TOL = dict(atol=5e-4, rtol=0.0)
+D1_KERNEL = "decode_attention_kernel"
+D1_COMBINE = "decode_combine_kernel"
+# the decode steps' device time before D1, when eager f32 copies of the
+# caches fed the einsums (PERF.md section 5; NVIDIA H100 80GB HBM3,
+# 700.00 W): phi3-mini 8 x 4096 and whisper-small 32 x 448
+EARLIER_DECODE_MS = {"phi3-mini-3.8b": 74.4, "whisper-small": 14.229}
 # a bf16 gradient against autograd through an independent f32 plain
 # version (the full S x S attention, the sequential recurrences): 5e-2 of
 # max(1, the gradient's largest entry), i.e. 5e-2 abs on unit-scale
@@ -1017,6 +1109,205 @@ def serve_shards(torch, ops, ref, A, randn, rows, quarter, bhsd,
         f"call; {card}")
     del args, dense, r4, k4, v4, w4, u4, s4
     torch.cuda.empty_cache()
+
+
+def decode_phase(torch, ops, ref, randn, rows) -> None:
+    """Phase 2h: D1 against its plain version at each ``DECODE_SHAPES``
+    shape and cache dtype, the same split count for both: o / l and m
+    within ``DECODE_F32_TOL`` (f32 caches) or ``BF16_TOL`` (bf16), l within
+    5e-4 relative, and a call with no valid row exactly (NEG_INF, 0, 0).
+    For the bf16 cache, the kernel's time (CUDA events over 20 calls queued
+    behind a spin: a call's host work is of the small shapes' order), the
+    plain version's, SDPA's over the valid rows (``enable_gqa``; for the
+    table only, never on the path) and the bound of ``decode_work`` at
+    3.35 TB/s. At phi3's shape also: the kernel's memory above what the
+    cache holds (less than one cache tensor: no copy) beside the plain
+    version's, a view of 8 of the cache's 32 kv heads read in place, and
+    the profiler's times of the split and combine kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    card = nvidia_smi("name,power.limit")
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def normalised(m, l_sum, o):
+        return o / l_sum[..., None]
+
+    row = rows["decode_attention"] = dict(
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/models/attention.py:183")
+    for label, (b, h, kv, s, d), (lo, hi), offset, ring, splits, dts in \
+            DECODE_SHAPES:
+        pos = None
+        if ring:    # positions hi - s .. hi - 1, each at slot p % s
+            p = torch.arange(hi - s, hi, device=dev, dtype=torch.int32)
+            pos = torch.empty(s, device=dev, dtype=torch.int32)
+            pos[p % s] = p
+        r0, r1 = ref.decode_rows(lo, hi, offset, s, ring)
+        valid = (int(((pos >= lo) & (pos < hi)).sum()) if ring else r1 - r0)
+        ns = splits or DA.split_count(b * kv, r1 - r0, sms)
+        kw = dict(lo=lo, hi=hi, offset=offset, pos=pos, n_splits=ns)
+        errs = []
+        for name in dts:
+            dt = dtypes[name]
+            q = randn((b, h, d), dt)
+            k, v = randn((b, s, kv, d), dt), randn((b, s, kv, d), dt)
+            got = ops.decode_attention(q, k, v, **kw)
+            want = ref.decode_attention(q, k, v, **kw)
+            if name == dts[0]:      # timed below
+                q0, k0, v0 = q, k, v
+            del q, k, v
+            if not valid:
+                for x, w0 in zip(got, (ref.NEG_INF, 0.0, 0.0)):
+                    assert bool((x == w0).all()), (label, name)
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), (label, name)
+                errs.append((name, 0.0, 0.0, 0.0))
+                continue
+            tol = DECODE_F32_TOL if dt == torch.float32 else BF16_TOL
+            err = max_err(torch, normalised(*got), normalised(*want), tol)
+            m_err = max_err(torch, got[0], want[0], DECODE_F32_TOL)
+            l_err = max_err(torch, got[1] / want[1],
+                            torch.ones_like(want[1]), DECODE_F32_TOL)
+            errs.append((name, err, m_err, l_err))
+            del got, want
+        q, k, v = q0, k0, v0
+        elt = k.element_size()
+        flops, nbytes = decode_work(b, h, kv, valid, d, elt)
+        b_ms, b_by = bound(flops, nbytes, "bfloat16")
+        ms = queued_ms(torch, lambda: ops.decode_attention(q, k, v, **kw), 20)
+        plain = time_ms(torch, lambda: ref.decode_attention(q, k, v, **kw), 3)
+        lib = None
+        if valid:
+            if ring:
+                sel = torch.nonzero((pos >= lo) & (pos < hi))[:, 0]
+                kk, vv = k[:, sel], v[:, sel]
+            else:
+                kk, vv = k[:, r0:r1], v[:, r0:r1]
+            kk, vv = (x.transpose(1, 2).contiguous() for x in (kk, vv))
+            q4 = q.view(b, h, 1, d)
+            lib = queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kk, vv, enable_gqa=True), 20)
+            del kk, vv
+        if label in DECODE_SWEEP:   # the split count's waves, side by side
+            sweep = []
+            for waves in (1, 2, 4, 8):
+                n_w = DA.split_count(b * kv, r1 - r0, sms, waves)
+                sweep.append((waves, n_w, queued_ms(
+                    torch, lambda: ops.decode_attention(
+                        q, k, v, **dict(kw, n_splits=n_w)), 20)))
+            log(f"[2h splits {label}] CTAs an SM the split count aims for "
+                f"(split_count's waves; {DA.SPLIT_WAVES} on the path): "
+                + ", ".join(f"{w}: {n} splits {t:.4f} ms" for w, n, t in
+                            sweep) + f" (queued); {card}")
+        key = "" if label == "phi3" else f"dec_{label}_"
+        row.update({f"{key}max_abs_err": max(e[1] for e in errs),
+                    f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bound_ms": b_ms, f"{key}library_ms": lib,
+                    f"{key}splits": ns})
+        if not key:
+            row["bound_by"] = b_by
+        log(f"[2h decode_attention {label}] q ({b}, {h}, {d}) over a "
+            f"({b}, {s}, {kv}, {d}) cache, keys [{lo}, {hi}) of rows at "
+            f"{'the ring pos' if ring else f'offset {offset}'}: {valid} "
+            f"valid rows, {ns} splits; "
+            + "; ".join(f"{n} cache: o / l err {e:.3e}, m {me:.3e}, l "
+                        f"relative {le:.3e}" for n, e, me, le in errs)
+            + f" (tol f32 5e-4 abs, bf16 2e-2); bf16 kernel {ms:.4f} ms "
+            f"(queued), plain {plain:.4f} ms, SDPA "
+            + (f"{lib:.4f} ms" if lib is not None else "none (no valid row)")
+            + f", bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB), "
+            f"{b_ms / ms:.1%} of it; {card}")
+        if label == "phi3":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            extra = {}
+            for tag, fn in (("kernel", ops.decode_attention),
+                            ("plain", ref.decode_attention)):
+                torch.cuda.reset_peak_memory_stats()
+                fn(q, k, v, **kw)
+                torch.cuda.synchronize()
+                extra[tag] = torch.cuda.max_memory_allocated() - base
+            assert extra["kernel"] < k.numel() * elt, extra
+            view_k, view_v = k[:, :, 8:16], v[:, :, 8:16]
+            assert not view_k.is_contiguous()
+            qv = q[:, 8:16].contiguous()
+            torch.cuda.reset_peak_memory_stats()
+            got = ops.decode_attention(qv, view_k, view_v, lo=lo, hi=hi)
+            torch.cuda.synchronize()
+            view_extra = torch.cuda.max_memory_allocated() - base
+            assert view_extra < view_k.numel() * elt, view_extra
+            want = ref.decode_attention(qv, view_k, view_v, lo=lo, hi=hi)
+            view_err = max_err(torch, normalised(*got), normalised(*want),
+                               BF16_TOL)
+            del got, want
+            # five calls a profile: on the card the profiler has missed the
+            # first of a one-call profile's two kernels five times running
+            evs = kernel_events(torch, lambda: [ops.decode_attention(
+                q, k, v, **kw) for _ in range(5)], names_all(D1_KERNEL,
+                                                             D1_COMBINE))
+            by = {}
+            for sym in (D1_KERNEL, D1_COMBINE):
+                mine = [e for e in evs if sym in e.key]
+                assert mine, (sym, [e.key for e in evs])
+                by[sym] = (sum(e.self_device_time_total for e in mine) / 1e3
+                           / sum(e.count for e in mine))
+            row.update(kernel_only_ms=by[D1_KERNEL],
+                       combine_ms=by[D1_COMBINE], view_err=view_err,
+                       extra_mib=extra["kernel"] / 2**20,
+                       plain_extra_mib=extra["plain"] / 2**20)
+            log(f"[2h decode_attention phi3 memory] above the {base / 2**30:.3f}"
+                f" GiB held: kernel {extra['kernel'] / 2**20:.2f} MiB, plain "
+                f"{extra['plain'] / 2**20:.2f} MiB (one bf16 cache tensor "
+                f"{k.numel() * elt / 2**20:.2f} MiB); kv heads 8..15 as a "
+                f"view (strides {view_k.stride()}) read in place, "
+                f"{view_extra / 2**20:.2f} MiB above, err {view_err:.3e}; "
+                f"profiler, a launch: {D1_KERNEL} {by[D1_KERNEL]:.4f} ms + "
+                f"{D1_COMBINE} {by[D1_COMBINE]:.4f} ms")
+        del q, k, v, q0, k0, v0
+    torch.cuda.empty_cache()
+
+
+def decode_report(torch, label: str, name: str, fn, per_step: int,
+                  earlier=None) -> None:
+    """One decode step ``fn`` alone: its time (CUDA events over 3 calls),
+    its device time and idle share and top kernels from the profiler, D1's
+    launches (``per_step``; no other kernel of the port, asserted) and
+    times, and its peak memory above what was held before it;
+    ``earlier``: the step's device time before D1 (``EARLIER_DECODE_MS``)."""
+    alone = time_ms(torch, fn, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    evs = kernel_events(torch, fn, lambda evs: n_launches(evs, D1_KERNEL)
+                        == per_step)
+    total = sum(e.self_device_time_total for e in evs) / 1e3
+    assert total > 0, f"{name}: the profiler saw no device time"
+    assert n_launches(evs, D1_KERNEL) == per_step, \
+        (name, per_step, [e.key for e in evs])
+    others = [e.key for e in evs if any(k in e.key for k in KERNEL_SYMBOLS)
+              and D1_KERNEL not in e.key and D1_COMBINE not in e.key]
+    assert not others, (name, others)
+    d1 = {sym: sum(e.self_device_time_total for e in evs if sym in e.key)
+          / 1e3 for sym in (D1_KERNEL, D1_COMBINE)}
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[{label} decode {name}] step alone {alone:.3f} ms; device time "
+        f"{total:.3f} ms in {sum(e.count for e in evs)} kernels (idle "
+        f"{1 - total / alone:.1%})"
+        + (f", {earlier} ms before D1 (PERF.md section 5)" if earlier else "")
+        + f"; D1 {D1_KERNEL} {d1[D1_KERNEL]:.3f} ms x{per_step}, "
+        f"{D1_COMBINE} {d1[D1_COMBINE]:.3f} ms "
+        f"x{n_launches(evs, D1_COMBINE)} ("
+        f"{(d1[D1_KERNEL] + d1[D1_COMBINE]) / total:.1%}); peak memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**20:.1f} MiB above the "
+        f"{base / 2**30:.2f} GiB held; top: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+            for e in top))
 
 
 def training_phase(torch, dev, card) -> dict:
@@ -1714,7 +2005,10 @@ def serving_mesh_phase(torch, dev, card) -> dict:
     cache leaf is ``torch.equal`` to no mesh's (m = d = 1 cuts nothing, and
     the caches ``init_decode_caches`` allocates there are whole), the
     logits finite and of their shapes, each prefill launches its kernel
-    once a layer of its kind and a decode step none. Then times a prefill
+    once a layer of its kind and nothing else, and each decode step D1
+    (``decode_attention``) once an attn or local layer (none for
+    DeepSeek-V2's absorbed MLA decode) and nothing else. Then times a
+    prefill
     and a decode step of each, in turns (``SERVE_ORDER``; host clock
     around synchronised calls), and prints the medians side by side, and
     the per-rank cache bytes
@@ -1741,6 +2035,7 @@ def serving_mesh_phase(torch, dev, card) -> dict:
             cfg = full if depth is None else dataclasses.replace(
                 full, num_layers=depth)
             n_kernel = cfg.layer_kinds().count(kind)
+            n_dec = decode_attn_layers(cfg)
             params = T.init_params(cfg, torch.Generator(
                 device=dev).manual_seed(0), device=dev)
             gen = torch.Generator(device=dev).manual_seed(8)
@@ -1784,9 +2079,12 @@ def serving_mesh_phase(torch, dev, card) -> dict:
                                     for k in _build.NAMES}
                 assert pre_launches[op] == n_kernel and sum(
                     pre_launches.values()) == n_kernel, (arch, pre_launches)
-                assert not any(dec_launches.values()), (arch, dec_launches)
+                assert dec_launches == {**dict.fromkeys(_build.NAMES, 0),
+                                        "decode_attention":
+                                        n_dec * SERVE_STEPS}, \
+                    (arch, dec_launches)
                 for name in _build.NAMES:
-                    total[name] += pre_launches[name]
+                    total[name] += pre_launches[name] + dec_launches[name]
                 assert tuple(logits[0].shape) == (1, SERVE_PROMPT,
                                                   cfg.vocab_size)
                 for lg in logits:
@@ -1830,8 +2128,9 @@ def serving_mesh_phase(torch, dev, card) -> dict:
                 f"({d0[1]:.3f}-{d0[2]:.3f}) | (1, 1) mesh {d1[0]:.3f} ms "
                 f"({d1[1]:.3f}-{d1[2]:.3f}); {len(times['no mesh'][0])} "
                 f"calls each, in turns {SERVE_ORDER[:4]} (host clock, "
-                f"synchronised); {op} {n_kernel} launches a prefill, none "
-                f"a decode step; {len(got)} logits (prefill, {SERVE_STEPS} "
+                f"synchronised); {op} {n_kernel} launches a prefill, "
+                f"decode_attention {n_dec} a decode step and no other "
+                f"kernel; {len(got)} logits (prefill, {SERVE_STEPS} "
                 f"decode steps at t = {SERVE_PROMPT}.."
                 f"{SERVE_PROMPT + SERVE_STEPS - 1}) and {len(got_c)} cache "
                 f"leaves torch.equal to no mesh; {card}")
@@ -1852,10 +2151,12 @@ def examples_phase(torch, card) -> dict:
     of K1's f32 kernel, and its 10 training steps of reduced phi3-mini run
     K3 once an attn layer a step (remat off; the backward is plain);
     multi_tenant_serving's demo runs K3 once an attn layer per prefill run
-    of its phi3-mini tenant and K4's two passes once an rwkv6 layer per
-    prefill run of its rwkv6 tenant (decode runs neither);
-    fault_tolerant_training runs K3 once an attn layer per step it runs,
-    its reruns after each restart included. Quickstart's own measured
+    of its phi3-mini tenant, K4's two passes once an rwkv6 layer per
+    prefill run of its rwkv6 tenant, and D1 once an attn layer per decode
+    run of its starcoder2 tenant (DeepSeek-V2's absorbed decode runs
+    none); fault_tolerant_training runs K3 once an attn layer per step it
+    runs, its reruns after each restart included, and neither example
+    that trains runs D1. Quickstart's own measured
     error of K1 against ``ref.matmul`` is held to F32_TOL's atol (phase
     2b holds K1 at its shape too, and phase 2a K3 at D = 32). Returns the
     launches."""
@@ -1880,21 +2181,26 @@ def examples_phase(torch, card) -> dict:
     n_wkv = reduced(get_config("rwkv6-1.6b")).layer_kinds().count("rwkv6")
     k1_f32 = "sliced_matmul_kernel"
     tenant = {arch: name for name, arch, _, _ in DEMO_JOBS}
+    decoders = [arch for _, arch, phase, _ in DEMO_JOBS if phase == "decode"]
+    n_dec = {arch: decode_attn_layers(reduced(get_config(arch)))
+             for arch in decoders}
+    assert n_dec["deepseek-v2-236b"] == 0 < n_dec["starcoder2-15b"], n_dec
 
     def want_quickstart(res):
         return {k1_f32: 2, "sliced_matmul_wgmma_kernel": 0,
-                k3_phi3: res["steps"] * n_phi3}
+                k3_phi3: res["steps"] * n_phi3, D1_KERNEL: 0}
 
     def want_serving(res):
         runs = {arch: prefill_runs(res["rounds"], tenant[arch])
-                for arch in ("phi3-mini-3.8b", "rwkv6-1.6b")}
+                for arch in tenant}
         return {k3_phi3: n_phi3 * runs["phi3-mini-3.8b"],
                 "flash_fwd": n_phi3 * runs["phi3-mini-3.8b"],
-                **{k: n_wkv * runs["rwkv6-1.6b"] for k in K4_KERNELS}}
+                **{k: n_wkv * runs["rwkv6-1.6b"] for k in K4_KERNELS},
+                D1_KERNEL: sum(n_dec[arch] * runs[arch] for arch in decoders)}
 
     def want_ft(res):
         assert res["res"]["steps"] == 16
-        return {k3_slm: len(res["res"]["losses"]) * n_slm}
+        return {k3_slm: len(res["res"]["losses"]) * n_slm, D1_KERNEL: 0}
 
     launches = dict.fromkeys(_build.NAMES, 0)
     cwd = os.getcwd()
@@ -2549,6 +2855,9 @@ def main() -> int:
     # ---- phase 2g: K3, K4 and K5 at a (1, 4) rank's shard shapes ---------
     shard_phase(torch, ops, ref, A, R, randn, rows)
 
+    # ---- phase 2h: D1 decode_attention at the decode shapes ---------------
+    decode_phase(torch, ops, ref, randn, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -2586,6 +2895,10 @@ def main() -> int:
     n_layers = get_config("phi3-mini-3.8b").num_layers
     runs = prefill_runs(rounds, prefill.name)
     assert launches["flash_attention"] == n_layers * runs, (launches, runs)
+    n_dec = decode_attn_layers(get_config("phi3-mini-3.8b"))
+    dec_runs = prefill_runs(rounds, decode.name)
+    assert launches["decode_attention"] == n_dec * dec_runs, \
+        (launches, dec_runs)
     logits = {name: srv._exec[name]() for name in srv.jobs}
     torch.cuda.synchronize()
     assert logits[prefill.name].shape == (1, 2048, 32064)
@@ -2598,10 +2911,14 @@ def main() -> int:
         f"{res['wall_s']:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"flash_attention launches {launches['flash_attention']} = "
-        f"{n_layers} x {runs} prefill slices (warm-up included)")
+        f"{n_layers} x {runs} prefill slices, decode_attention launches "
+        f"{launches['decode_attention']} = {n_dec} x {dec_runs} decode "
+        f"slices (warm-up included)")
     log(f"[main path] dense launches {launches}")
     res_twin = twin.drain()
     drain_report(torch, srv, twin, res, res_twin, slices, "serve")
+    decode_report(torch, "serve", decode.name, srv._exec[decode.name], n_dec,
+                  EARLIER_DECODE_MS["phi3-mini-3.8b"])
     with tempfile.TemporaryDirectory() as store_dir:
         dmn = ServingDaemon(str(Path(store_dir) / "serve.sqlite"),
                             pod_id="chip-smoke")
@@ -2658,6 +2975,12 @@ def main() -> int:
     assert (n_wkv, n_lru) == (24, 26), (n_wkv, n_lru)
     assert rec_launches["rwkv6_scan"] == n_wkv * runs_c, (rec_launches, runs_c)
     assert rec_launches["rg_lru"] == n_lru * runs_e, (rec_launches, runs_e)
+    n_dec = {job.name: decode_attn_layers(get_config(job.arch))
+             for job in jobs}
+    assert (n_dec[jobs[1].name], n_dec[jobs[3].name]) == (0, 12), n_dec
+    runs_f = prefill_runs(rounds, jobs[3].name)
+    assert rec_launches["decode_attention"] == 12 * runs_f, \
+        (rec_launches, runs_f)
     logits = {name: srv._exec[name]() for name in srv.jobs}
     torch.cuda.synchronize()
     want_shapes = {jobs[0].name: (4, 2048, 65536), jobs[1].name: (32, 65536),
@@ -2677,7 +3000,9 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; rwkv6_scan "
         f"launches {rec_launches['rwkv6_scan']} = {n_wkv} x {runs_c} prefill "
         f"slices, rg_lru launches {rec_launches['rg_lru']} = {n_lru} x "
-        f"{runs_e} prefill slices (warm-up included)")
+        f"{runs_e} prefill slices, decode_attention launches "
+        f"{rec_launches['decode_attention']} = 12 local layers x {runs_f} "
+        f"RecurrentGemma decode slices (warm-up included)")
     log(f"[main path] recurrent launches {rec_launches}")
     res_twin = twin.drain()
     seen = drain_report(torch, srv, twin, res, res_twin, slices, "serve-rec",
@@ -2689,6 +3014,9 @@ def main() -> int:
     names = " ".join(seen[jobs[2].name])
     assert K5_KERNEL in names and K5_OLD_KERNEL not in names, \
         f"the RecurrentGemma prefill step did not run K5's kernel: {names}"
+    for job in (jobs[1], jobs[3]):
+        decode_report(torch, "serve-rec", job.name, srv._exec[job.name],
+                      n_dec[job.name])
     del srv, twin, weights, res, res_twin
     torch.cuda.empty_cache()
 
@@ -2721,6 +3049,12 @@ def main() -> int:
         runs = prefill_runs(res["rounds"], arch_jobs[0].name)
         flash = ops.LAUNCHES["flash_attention"]
         assert flash == cfg.num_layers * runs, (arch, flash, runs)
+        dec_jobs = [job for job in arch_jobs if job.phase == "decode"]
+        dec = sum(decode_attn_layers(cfg) * prefill_runs(res["rounds"],
+                                                         job.name)
+                  for job in dec_jobs)
+        assert ops.LAUNCHES["decode_attention"] == dec, \
+            (arch, ops.LAUNCHES, dec)
         logits = {name: srv._exec[name]() for name in srv.jobs}
         torch.cuda.synchronize()
         for job in arch_jobs:
@@ -2738,7 +3072,8 @@ def main() -> int:
             f"in {t_init:.2f} s), on the H100 model: rounds "
             f"{decisions(res['rounds'])}, drain wall_s {res['wall_s']:.4f}; "
             f"flash_attention launches {flash} = {cfg.num_layers} x {runs} "
-            f"prefill runs (warm-up included); logits "
+            f"prefill runs, decode_attention launches {dec} (one an attn "
+            f"layer a decode run; warm-up included); logits "
             + ", ".join(f"{n} {tuple(lg.shape)}" for n, lg in logits.items())
             + f" finite; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2757,6 +3092,9 @@ def main() -> int:
             f"(idle {1 - total / 1e3 / alone:.1%}); K3 "
             f"flash_fwd_wgmma_kernel<{cfg.head_dim}> {k3_ms:.3f} ms x"
             f"{cfg.num_layers} ({k3_ms / (total / 1e3):.1%})")
+        for job in dec_jobs:
+            decode_report(torch, "serve-slm", job.name, srv._exec[job.name],
+                          decode_attn_layers(cfg))
         del srv, wts, logits, res
         torch.cuda.empty_cache()
     log(f"[main path] stablelm launches {slm_launches}")
@@ -2801,6 +3139,9 @@ def main() -> int:
         runs = prefill_runs(res["rounds"], arch_jobs[0].name)
         flash = ops.LAUNCHES["flash_attention"]
         assert flash == cfg.num_layers * runs, (arch, flash, runs)
+        # MLA's absorbed decode attends in its latent space, without D1
+        assert decode_attn_layers(cfg) == 0, arch
+        assert ops.LAUNCHES["decode_attention"] == 0, (arch, ops.LAUNCHES)
         logits = {name: srv._exec[name]() for name in srv.jobs}
         torch.cuda.synchronize()
         for job in arch_jobs:
@@ -2834,8 +3175,12 @@ def main() -> int:
         log(f"[serve-ds] decisions side by side (pair, slices), H100 | v5e: "
             f"{decisions(res['rounds'])} | {decisions(v5e_rounds)}")
         for job in arch_jobs:
+            if job.phase == "decode":   # asserts no kernel of the port ran
+                decode_report(torch, "serve-ds", job.name,
+                              srv._exec[job.name], 0)
+                continue
             alone = time_ms(torch, srv._exec[job.name], 3)
-            n_want = cfg.num_layers if job.phase == "prefill" else 0
+            n_want = cfg.num_layers
             evs = kernel_events(torch, srv._exec[job.name], lambda evs: (
                 n_launches(evs, "flash_fwd_wgmma_kernel<192>") == n_want))
             total = sum(e.self_device_time_total for e in evs)
@@ -2892,6 +3237,12 @@ def main() -> int:
     assert (k3_l, k3_m) == (28, 24), (k3_l, k3_m)
     assert mm_launches["flash_attention"] == k3_l * runs_l + k3_m * runs_m, \
         (mm_launches, runs_l, runs_m)
+    d1_l, d1_m = decode_attn_layers(qcfg), decode_attn_layers(wcfg)
+    assert (d1_l, d1_m) == (28, 24), (d1_l, d1_m)
+    dec_l = prefill_runs(res["rounds"], mm_jobs[1].name)
+    dec_m = prefill_runs(res["rounds"], mm_jobs[3].name)
+    assert mm_launches["decode_attention"] == d1_l * dec_l + d1_m * dec_m, \
+        (mm_launches, dec_l, dec_m)
     logits = {name: srv._exec[name]() for name in srv.jobs}
     torch.cuda.synchronize()
     want_shapes = {mm_jobs[0].name: (1, 2048, qcfg.vocab_size),
@@ -2928,8 +3279,10 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"flash_attention launches {mm_launches['flash_attention']} = "
         f"{k3_l} x {runs_l} "
-        f"Qwen2-VL + {k3_m} x {runs_m} Whisper prefill runs (warm-up "
-        f"included); logits " + ", ".join(
+        f"Qwen2-VL + {k3_m} x {runs_m} Whisper prefill runs, "
+        f"decode_attention launches {mm_launches['decode_attention']} = "
+        f"{d1_l} x {dec_l} Qwen2-VL + {d1_m} x {dec_m} Whisper decode runs "
+        f"(12 self + 12 cross; warm-up included); logits " + ", ".join(
             f"{n} {s}" for n, s in want_shapes.items()) + " finite")
     for k1, k2, n1, n2, cp in res["rounds"]:
         log(f"[serve-mm] H100 model: round {k1} x {k2}: slices {n1}:{n2}, "
@@ -2939,13 +3292,13 @@ def main() -> int:
     log(f"[main path] multimodal launches {mm_launches}")
     k3_want = {mm_jobs[0].name: ("flash_fwd_wgmma_kernel<128>", k3_l),
                mm_jobs[2].name: ("flash_fwd_wgmma_kernel<64>", k3_m)}
-    for job in mm_jobs:
+    for job in (mm_jobs[0], mm_jobs[2]):
         alone = time_ms(torch, srv._exec[job.name], 3)
         torch.cuda.reset_peak_memory_stats()
         srv._exec[job.name]()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        sym, n_want = k3_want.get(job.name, ("flash_fwd", 0))
+        sym, n_want = k3_want[job.name]
         evs = kernel_events(torch, srv._exec[job.name], lambda evs: (
             n_launches(evs, sym) == n_want))
         total = sum(e.self_device_time_total for e in evs)
@@ -2962,6 +3315,10 @@ def main() -> int:
             f"GiB; top: " + "; ".join(
                 f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms "
                 f"x{e.count}" for e in top))
+    for job, n, arch in ((mm_jobs[1], d1_l, "qwen2-vl-7b"),
+                         (mm_jobs[3], d1_m, "whisper-small")):
+        decode_report(torch, "serve-mm", job.name, srv._exec[job.name], n,
+                      EARLIER_DECODE_MS.get(arch))
     del srv, res
     torch.cuda.empty_cache()
     # the losses, once each on a prefill batch: Qwen2-VL's labels are -1
@@ -3043,12 +3400,16 @@ def main() -> int:
                                                "ctas_per_sm",
                                                "rel_err", "row_rel_err",
                                                "h100_runs", "h100_fused_ms",
-                                               "h100_fused_over_serial")
+                                               "h100_fused_over_serial",
+                                               "splits", "kernel_only_ms",
+                                               "combine_ms", "view_err",
+                                               "extra_mib",
+                                               "plain_extra_mib")
                            if k in row},
                         **{k: v for k, v in row.items()
                            if k.startswith(("d80_", "d160_", "d192_", "d128_",
                                             "d64_", "d48_", "train_",
-                                            "shard_"))}})
+                                            "shard_", "dec_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

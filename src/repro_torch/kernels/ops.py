@@ -2,12 +2,13 @@
 ``repro/kernels/ops.py``.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
-raises (K3, K4 and K5 take strided slices, copied whole first); a CPU tensor goes to the plain version: ``ref`` for K1-K3, and for
-K4 and K5 the model's own chunked and scanned forms in
-``repro_torch.models.recurrent``. A meta tensor (the dry run's, shapes and
-no data) goes to the plain version too: no kernel can run on it. Nothing
-else selects the path: there is no counterpart of
-``REPRO_PALLAS_INTERPRET``.
+raises (K3, K4 and K5 take strided slices, copied whole first; D1 reads a
+cache in place through its strides, never a copy); a CPU tensor goes to
+the plain version: ``ref`` for K1-K3 and D1, and for K4 and K5 the
+model's own chunked and scanned forms in ``repro_torch.models.recurrent``.
+A meta tensor (the dry run's, shapes and no data) goes to the plain
+version too: no kernel can run on it. Nothing else selects the path: there
+is no counterpart of ``REPRO_PALLAS_INTERPRET``.
 ``LAUNCHES`` counts the kernels' launches by name.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import coschedule as _cs
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rg_lru as _lru
 from repro_torch.kernels import rwkv6_scan as _wkv
@@ -93,3 +95,22 @@ def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
         return rglru_scan(x.float(), a_log.float(), h0.float())[0]
     return _lru.rg_lru(*_dense(x, a_log), h0=h0 if h0 is None else
                        h0.contiguous())
+
+
+def decode_attention(q, k_cache, v_cache, *, lo=None, hi: int,
+                     offset: int = 0, pos=None, n_splits: int = None):
+    """One query token's attention partials over a (B, S, kv, D) cache:
+    q (B, H, D) -> f32 (m (B, H), l (B, H), o (B, H, D)) over the rows
+    whose key position (``offset`` + row, or ``pos[row]``, -1 empty) lies
+    in [max(lo, 0), hi) (``ref.decode_attention``). Not a kernel of the
+    reference, whose decode attention is plain XLA: ``lo``/``hi`` and
+    ``pos`` are the port's. ``n_splits`` None: one split on the CPU, and
+    on the card enough to fill it (``decode_attention.split_count``)."""
+    _da.check_shapes(q, k_cache, v_cache, pos)
+    lo = 0 if lo is None else lo
+    if _on_cpu(q):
+        return ref.decode_attention(q, k_cache, v_cache, lo=lo, hi=hi,
+                                    offset=offset, pos=pos,
+                                    n_splits=n_splits or 1)
+    return _da.decode_attention(q, k_cache, v_cache, lo=lo, hi=hi,
+                                offset=offset, pos=pos, n_splits=n_splits)

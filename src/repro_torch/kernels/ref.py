@@ -5,6 +5,9 @@ values every CUDA kernel is held against on the card. ``rwkv6`` and
 ``rg_lru`` are the sequential recurrences, the oracles of K4 and K5; the
 CPU path of ``ops.rwkv6_scan`` and ``ops.rg_lru`` is the model's own
 chunked and scanned form in ``repro_torch.models.recurrent``.
+``decode_attention`` has no Pallas counterpart: it is the reference's plain
+``decode_attention`` (``repro/models/attention.py:183``) as partial
+softmaxes, split as the kernel D1 splits it.
 """
 from __future__ import annotations
 
@@ -44,6 +47,72 @@ def flash_attention(q, k, v, *, causal=True):
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype)
+
+
+def decode_rows(lo: int, hi: int, offset: int, s: int, ring: bool):
+    """The rows [r0, r1) of an S-row cache that decode attention reads:
+    those whose position ``offset + r`` lies in [lo, hi), or every slot of
+    a ring (``ring``: each row's position is stored, not implied)."""
+    if ring:
+        return 0, s
+    r0 = min(max(lo - offset, 0), s)
+    return r0, min(max(hi - offset, r0), s)
+
+
+def decode_split(rows: int, n_splits: int) -> int:
+    """Rows a split reads: split i takes [r0 + i c, r0 + (i + 1) c) of the
+    rows read, cut at r1; the last splits may be short or empty."""
+    return -(-rows // n_splits)
+
+
+def decode_attention(q, k, v, *, lo: int, hi: int, offset: int = 0,
+                     pos=None, n_splits: int = 1):
+    """One query token's attention partials over a KV cache. q (B, H, D);
+    k, v (B, S, kv, D) f32 or bf16; a row's key position is ``offset + r``,
+    or ``pos[r]`` ((S,) int, -1 an empty slot), and the row is valid when
+    that lies in [max(lo, 0), hi). Returns f32 (m, l, o) of shapes (B, H),
+    (B, H), (B, H, D): the max logit (q . k / sqrt(D)), the sum of
+    exp(logit - m) and the unnormalised sum of exp(logit - m) v over the
+    valid rows; no valid row gives (NEG_INF, 0, 0). Each of ``n_splits``
+    splits of the rows read (``decode_rows``, ``decode_split``) is computed
+    alone and the splits are merged in f32, in order, as the kernel does."""
+    b, s, kvh, d = k.shape
+    h = q.shape[1]
+    lo = max(lo, 0)
+    qg = q.float().reshape(b, kvh, h // kvh, d)
+    scale = 1.0 / np.sqrt(d)
+    kpos = (pos.long() if pos is not None else
+            offset + torch.arange(s, device=k.device))
+    valid = (kpos >= lo) & (kpos < hi)
+    r0, r1 = decode_rows(lo, hi, offset, s, pos is not None)
+    chunk = decode_split(r1 - r0, n_splits)
+    parts = []
+    for i in range(n_splits):
+        a = min(r0 + i * chunk, r1)
+        e = min(a + chunk, r1)
+        if e == a:
+            parts.append((torch.full(qg.shape[:-1], NEG_INF, device=k.device),
+                          torch.zeros(qg.shape[:-1], device=k.device),
+                          torch.zeros(qg.shape, device=k.device)))
+            continue
+        ok = valid[a:e]
+        logits = torch.einsum("bkgd,bskd->bkgs", qg,
+                              k[:, a:e].float()) * scale
+        logits = torch.where(ok, logits, NEG_INF)
+        m = logits.amax(dim=-1)
+        p = torch.where(ok, torch.exp(logits - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgs,bskd->bkgd", p, v[:, a:e].float())))
+    m = parts[0][0]
+    for pm, _, _ in parts[1:]:
+        m = torch.maximum(m, pm)
+    l_sum = torch.zeros_like(m)
+    o = torch.zeros_like(qg)
+    for pm, pl, po in parts:
+        w = torch.exp(pm - m)
+        l_sum = l_sum + pl * w
+        o = o + po * w[..., None]
+    return m.reshape(b, h), l_sum.reshape(b, h), o.reshape(b, h, d)
 
 
 def rwkv6(r, k, v, w_log, u, state=None):

@@ -10,13 +10,17 @@ width), with v padded to it (``_pad_v``). The reference reaches the same
 function through ``full_attention``, ``chunked_attention`` or
 ``chunked_attention_causal_skip`` (pure XLA); they stay here as plain
 functions for the tests, and the sliding-window ``local`` blocks of
-``transformer.py`` run on them. Decode attends over the cache with
-einsums; MLA's default decode (``mla_decode="absorbed"``) attends in the
-latent space. Whisper's encoder (non-causal, no cache) takes K3's full
-path; its decoder's cross-attention runs the plain ``full_attention``, as
-the reference's does. A window inside an ``attn`` block
-(``attention_kind="local"``) takes the reference's plain routes with the
-window, never K3, which has none (ROADMAP queue 1, item 18).
+``transformer.py`` run on them. Decode attends over the cache through
+``ops.decode_attention`` (the split-K kernel D1 on the card, which reads
+the bf16 cache in place), as do the ring cache of the ``local`` blocks
+and Whisper's cross-attention decode; MLA's default decode
+(``mla_decode="absorbed"``) attends in the latent space with einsums.
+Whisper's encoder (non-causal, no cache) takes K3's full path; its
+decoder's cross-attention over the encoder's output (no cache) runs the
+plain ``full_attention``, as the reference's does. A window inside an
+``attn`` block (``attention_kind="local"``) takes the reference's plain
+routes with the window, never K3, which has none (ROADMAP queue 1, item
+18).
 
 Caches are updated in place: a decode step writes its token's k/v into the
 cache it was given and returns the same tensors, where the functional
@@ -213,21 +217,23 @@ def _attend(logits, valid, apply_v, group=None):
 
 
 def decode_attention(q, k_cache, v_cache, t, *, window: int = 0,
-                     offset: int = 0, group=None):
-    """Single-token attention over a (B,S,kv,hd) cache, valid length t.
-    ``offset`` is the global position of the cache's first row and
-    ``group`` the ranks holding the other rows (``split_k_combine``)."""
-    b, s, kvh, hd = k_cache.shape
-    h = q.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                          k_cache.float()) / np.sqrt(hd)
-    kpos = offset + torch.arange(s, device=q.device)
-    valid = kpos < t
-    if window > 0:
-        valid &= kpos >= t - window
-    o = _attend(logits, valid, lambda p: torch.einsum(
-        "bkgs,bskh->bkgh", p, v_cache.float()), group)
+                     offset: int = 0, group=None, pos=None):
+    """Single-token attention over a (B,S,kv,hd) cache, valid length t:
+    the keys at positions [t - window, t) ([0, t) with no window), read by
+    ``ops.decode_attention`` (the kernel D1 on the card, in the cache's
+    own dtype; no f32 copy of it). ``offset`` is the global position of
+    the cache's first row, ``pos`` (S,) the position each row holds where
+    the rows are a ring's slots (-1 empty), and ``group`` the ranks
+    holding the other rows, whose partials ``split_k_combine`` merges;
+    with no group the output is o / l, the same arithmetic."""
+    b, _, h, hd = q.shape
+    m, l_sum, o = ops.decode_attention(
+        q.reshape(b, h, hd), k_cache, v_cache,
+        lo=t - window if window > 0 else None, hi=t, offset=offset, pos=pos)
+    if group is not None:
+        o = split_k_combine(m, l_sum, o, group)
+    else:
+        o = o / l_sum[..., None]
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 

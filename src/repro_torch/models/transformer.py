@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -206,32 +205,27 @@ def _local_ring_update(cache, k_new, v_new, positions, cb=None,
     return cache
 
 
-def _local_ring_attend(q, cache, t, window, cb=None):
-    """Decode attention over a ring cache with stored absolute positions;
-    under a ``CacheBlock`` that splits the slots, over this rank's slots
+def _local_ring_attend(q, cache, t: int, window, cb=None):
+    """Decode attention of the token at position ``t`` over a ring cache
+    with stored absolute positions: the slots holding positions
+    (t - window, t], through ``attention.decode_attention`` with the
+    ring's ``pos`` (the kernel D1 on the card). Under a ``CacheBlock``
+    that splits the slots, over this rank's slots
     (``attention.split_k_combine``)."""
-    b, _, h, hd = q.shape
-    kvh = cache["k"].shape[2]
-    g = h // kvh
-    scale = 1.0 / np.sqrt(hd)
-    qg = q.reshape(b, kvh, g, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                          cache["k"].float()) * scale
     pos = cache["pos"]
     own = cb.share(pos.shape[0]) if cb is not None else None
     if own is not None:
         pos = pos[own]
-    valid = (pos >= 0) & (pos <= t) & (pos > t - window)
-    o = A._attend(logits, valid, lambda p: torch.einsum(
-        "bkgs,bskh->bkgh", p, cache["v"].float()),
-        cb.group if own is not None else None)
-    return o.reshape(b, 1, h, hd).to(q.dtype)
+    return A.decode_attention(q, cache["k"], cache["v"], t + 1,
+                              window=window, pos=pos,
+                              group=cb.group if own is not None else None)
 
 
 def _local_attention_block(x, p, cfg, positions, cache, t):
-    """Local (sliding-window) attention with a ring-buffer cache, on the
-    plain attention functions, as the reference runs it (no kernel: K3
-    takes neither a window nor head_dim 256, ROADMAP queue 1, item 18).
+    """Local (sliding-window) attention with a ring-buffer cache: a
+    prompt on the plain attention functions, as the reference runs it (no
+    kernel: K3 takes neither a window nor head_dim 256, ROADMAP queue 1,
+    item 18), a decode step through ``_local_ring_attend`` (D1).
     On a sequence block, this rank's heads over the whole sequence, as
     ``attention.gqa_forward``; under a serving ``CacheBlock`` the ring's
     slots are split over ``model`` where m divides W."""
@@ -256,9 +250,9 @@ def _local_attention_block(x, p, cfg, positions, cache, t):
             k_kv, v_kv = k, v
         _local_ring_update(cache, k_kv, v_kv, pos_vec, cb,
                            blk if w.split and w.kv_idx is None else None)
-        if s == 1:
-            o = _local_ring_attend(q, cache, pos_vec[-1], cfg.local_window,
-                                   cb)
+        if s == 1:  # decode: the token's position, t + 0 where t is given
+            o = _local_ring_attend(q, cache, int(pos_vec[-1]) if t is None
+                                   else t, cfg.local_window, cb)
         else:
             blk = A._pick_block(s, s)
             o = A.chunked_attention(q, k, v, causal=True,

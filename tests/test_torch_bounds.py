@@ -4,7 +4,9 @@ into slices (``sliced_bound_ms``), K3's work (``k3_work``), K4's work and bound 
 ``wkv6_bound_ms``, ``wkv6_pass_bytes``), K5's bytes (``lru_bytes``), what
 ``trace_report`` reads from K2's trace, and training's yardsticks (AdamW's
 bytes, the gradient errors, each training cell's launches), and what a
-rank of the split train step sends over ``model`` (``sp_exchange_bytes``).
+rank of the split train step sends over ``model`` (``sp_exchange_bytes``),
+and D1's work and launches a decode step (``decode_work``,
+``decode_attn_layers``).
 Pure arithmetic from the H100's
 data-sheet peaks, so it runs on the CPU; ``chip_smoke`` imports torch only
 inside ``main``."""
@@ -194,6 +196,59 @@ def test_ptxas_entries_name_each_instance(smoke):
          "spill loads"),
         ("flash_fwd_kernelIfLi80E", "Used 100 registers, used 1 barriers",
          "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads")]
+
+
+DECODE_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN70_GLOBAL__N__2d1f0a3e_19_\
+decode_attention_cu_5a7e11c423decode_attention_kernelI13__nv_bfloat16Li16ELi1E\
+EEvN70_GLOBAL__N__2d1f0a3e_19_decode_attention_cu_5a7e11c44ArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN70_GLOBAL__N__2d1f0a3e_19_\
+decode_attention_cu_5a7e11c423decode_attention_kernelIfLi32ELi16EEEvN70_GLOBAL\
+__N__2d1f0a3e_19_decode_attention_cu_5a7e11c44ArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 232 registers, used 1 barriers
+"""
+
+
+def test_ptxas_entries_name_d1_instances(smoke):
+    """D1's instances keep all their template arguments (dtype, lanes a
+    row, query heads), so each of its 32 instances is told apart."""
+    assert [e for e, _, _ in smoke.ptxas_entries(DECODE_PTXAS)] == [
+        "decode_attention_kernelI13__nv_bfloat16Li16ELi1E",
+        "decode_attention_kernelIfLi32ELi16E"]
+
+
+def test_decode_work_and_bound(smoke):
+    """phi3-mini's decode at t = 2048: 8 x 2049 valid rows of 32 kv heads
+    x 96 in bf16, K and V read once (201.4 MB), q once and the f32
+    (m, l, o) written once: bytes bound it, ~0.060 ms at 3.35 TB/s."""
+    flops, nbytes = smoke.decode_work(8, 32, 32, 2049, 96, 2)
+    assert flops == 4.0 * 8 * 32 * 2049 * 96
+    assert nbytes == (2 * 8 * 2049 * 32 * 96 * 2 + 8 * 32 * 96 * 2
+                      + 8 * 32 * 98 * 4) == 201_574_400
+    ms, by = smoke.bound(flops, nbytes, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0601715, rel=1e-5)
+
+
+def test_decode_attn_layers_and_shapes(smoke):
+    """D1's launches a decode step of each arch, and every phase-2h shape
+    one the kernel takes."""
+    sys.path.insert(0, str(_PATH.parent / "src"))
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_attention as DA
+    want = {"phi3-mini-3.8b": 32, "qwen2-vl-7b": 28, "stablelm-3b": 32,
+            "stablelm-12b": 40, "starcoder2-15b": 40, "whisper-small": 24,
+            "recurrentgemma-9b": 12, "rwkv6-1.6b": 0,
+            "deepseek-v2-236b": 0, "deepseek-v3-671b": 0}
+    assert {a: smoke.decode_attn_layers(get_config(a)) for a in want} \
+        == want
+    assert smoke.decode_attn_layers(reduced(get_config("whisper-small"))) \
+        == 4
+    for _, (b, h, kv, s, d), _, _, _, _, _ in smoke.DECODE_SHAPES:
+        assert h % kv == 0 and h // kv <= DA.MAX_GROUP
+        assert d % 8 == 0 and d <= DA.MAX_HEAD_DIM
 
 
 @pytest.mark.parametrize("xs,want", [([3.0, 1.0, 2.0], (2.0, 1.0, 3.0)),

@@ -6,12 +6,15 @@ a machine with the card and no JAX:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import coschedule as CS
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rg_lru as LRU
@@ -159,7 +162,8 @@ def test_reduced_multimodal_prefill_and_decode_match_the_cpu(cuda, arch):
     weights' forward on the CPU (1e-3: f32 on both, sums in another order):
     K3 once a decoder layer and once an encoder layer, in the forward and
     in the prefill into the caches, and never in the decode steps, whose
-    logits match the CPU's teacher-forced forward."""
+    logits match the CPU's teacher-forced forward; D1 once a decoder layer
+    a decode step (twice for Whisper's: its self and cross caches)."""
     cfg = reduced(get_config(arch))
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu", dtype=torch.float32)
@@ -186,6 +190,8 @@ def test_reduced_multimodal_prefill_and_decode_match_the_cpu(cuda, arch):
                                    rtol=1e-3)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == n_k3
+    assert ops.LAUNCHES["decode_attention"] == 4 * cfg.num_layers * (
+        2 if cfg.is_encoder_decoder else 1)
     torch.testing.assert_close(lp.cpu(), want[:, :32], atol=1e-3, rtol=1e-3)
 
 
@@ -294,6 +300,11 @@ def test_server_drains_through_the_kernels(cuda):
                            for k1, k2, n1, n2, _ in res["rounds"])
     layers = reduced(get_config("phi3-mini-3.8b")).num_layers
     assert ops.LAUNCHES["flash_attention"] == layers * prefill_runs
+    decode_runs = 1 + sum(n1 if k1 == "b-decode" else
+                          (n2 if k2 == "b-decode" else 0)
+                          for k1, k2, n1, n2, _ in res["rounds"])
+    assert ops.LAUNCHES["decode_attention"] == decode_runs * reduced(
+        get_config("starcoder2-15b")).num_layers
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -503,6 +514,8 @@ def test_recurrent_server_drains_through_k4_and_k5(cuda):
         kinds["rwkv6-1.6b"].count("rwkv6") * runs["c-prefill"]
     assert ops.LAUNCHES["rg_lru"] == \
         kinds["recurrentgemma-9b"].count("rglru") * runs["e-prefill"]
+    assert ops.LAUNCHES["decode_attention"] == \
+        kinds["recurrentgemma-9b"].count("local") * runs["f-decode"]
 
 
 def _k3_case(gen, cuda, dtype):
@@ -845,3 +858,108 @@ def test_train_step_on_a_one_rank_mesh_equals_no_mesh(cuda, arch):
     assert len(got) == len(want) > 20
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _decode_cases(s):
+    """(lo, hi, offset, ring pos after positions hi - s .. hi - 1, n_splits)
+    over an s-row cache: the whole prefix, a window, ragged splits, 8
+    splits of 5 rows, a row block with no valid row, and a wrapped ring
+    whose window leaves slots out."""
+    return ((None, 200, 0, False, None), (150, 200, 0, False, None),
+            (None, s, 0, False, 7), (0, 5, 0, False, 8),
+            (None, 200, 250, False, None), (s + 100 - 250 + 1, s + 100, 0,
+                                            True, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 96, 128, 160, 192, 256])
+@pytest.mark.parametrize("g", [1, 4, 7, 12, 16])
+def test_decode_attention_matches_plain(cuda, dtype, d, g):
+    """D1 against ``ref.decode_attention`` at the same split count, at each
+    head dim and query-head group the models give it: o / l and m within
+    5e-4 absolute for an f32 cache (ROADMAP item 19), bf16's tolerance for
+    a bf16 one, l within 5e-4 relative; no valid row gives exactly
+    (NEG_INF, 0, 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + g)
+    b, kv, s = 3, 2, 300
+    q = torch.randn(b, kv * g, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tol = (dict(atol=5e-4, rtol=0.0) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    for lo, hi, offset, ring, splits in _decode_cases(s):
+        pos = None
+        if ring:
+            p = torch.arange(hi - s, hi, device=cuda, dtype=torch.int32)
+            pos = torch.empty(s, device=cuda, dtype=torch.int32)
+            pos[p % s] = p
+        r0, r1 = ref.decode_rows(max(lo or 0, 0), hi, offset, s, ring)
+        ns = splits or DA.split_count(b * kv, r1 - r0, sms)
+        kw = dict(lo=lo or 0, hi=hi, offset=offset, pos=pos, n_splits=ns)
+        ops.reset_launches()
+        got = ops.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == 1
+        want = ref.decode_attention(q, k, v, **kw)
+        if r1 == r0:
+            for x, w in zip(got, want):
+                assert torch.equal(x, w)
+            assert bool((got[0] == ref.NEG_INF).all()) and not got[1].any()
+            continue
+        torch.testing.assert_close(got[2] / got[1][..., None],
+                                   want[2] / want[1][..., None], **tol)
+        torch.testing.assert_close(got[0], want[0], atol=5e-4, rtol=0.0)
+        torch.testing.assert_close(got[1], want[1], atol=0.0, rtol=5e-4)
+
+
+def test_decode_attention_reads_views_in_place(cuda):
+    """A cache view of 4 of 8 kv heads (non-unit row and batch strides)
+    is read where it lies, no copy of it allocated; a view whose rows
+    start 8 bytes off 16 is refused, never copied."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.randn(4, 512, 8, 96, generator=gen, device=cuda).bfloat16()
+    bigv = torch.randn(4, 512, 8, 96, generator=gen, device=cuda).bfloat16()
+    k, v = big[:, :, 2:6], bigv[:, :, 2:6]
+    assert not k.is_contiguous()
+    q = torch.randn(4, 8, 96, generator=gen, device=cuda).bfloat16()
+    ops.decode_attention(q, k, v, hi=300)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ops.decode_attention(q, k, v, hi=300)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < k.numel() * 2
+    want = ref.decode_attention(q, k.contiguous(), v.contiguous(), lo=0,
+                                hi=300)
+    torch.testing.assert_close(got[2] / got[1][..., None],
+                               want[2] / want[1][..., None],
+                               **TOL[torch.bfloat16])
+    odd = torch.zeros(4, 512, 8, 104, device=cuda).bfloat16()[..., 4:100]
+    with pytest.raises(ValueError, match="in place"):
+        ops.decode_attention(q, odd[:, :, :4], odd[:, :, :4], hi=300)
+
+
+def test_decode_step_allocates_no_f32_cache_copy(cuda):
+    """A one-layer decode step of full-width phi3-mini over an 8 x 4096
+    bf16 cache at t = 2049: D1 once, no other kernel of the port, and the
+    step's peak memory above what it held before less than one bf16 cache
+    tensor of the layer (the eager einsums allocated an f32 copy of k and
+    of v, four such tensors)."""
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), num_layers=1)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    caches = T.init_decode_caches(cfg, 8, 4096, device=cuda)
+    tok = torch.zeros(8, dtype=torch.long, device=cuda)
+    T.decode_step(params, cfg, caches, tok, 2048)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logits, _ = T.decode_step(params, cfg, caches, tok, 2049)
+    torch.cuda.synchronize()
+    layer = 8 * 4096 * cfg.num_kv_heads * cfg.head_dim * 2
+    assert torch.cuda.max_memory_allocated() - base < layer
+    assert ops.LAUNCHES["decode_attention"] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(logits.float()).all())

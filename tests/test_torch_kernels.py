@@ -149,6 +149,8 @@ def test_cpu_path_counts_no_launches():
     x = torch.zeros(1, 32, 2, 32)
     ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 32))
     ops.rg_lru(torch.zeros(1, 16, 64), torch.zeros(1, 16, 64))
+    ops.decode_attention(torch.zeros(1, 2, 32), torch.zeros(1, 8, 1, 32),
+                         torch.zeros(1, 8, 1, 32), hi=5)
     assert ops.LAUNCHES == {"sliced_matmul": 0, "coschedule": 0,
                             "flash_attention": 0, "rwkv6_scan": 0,
-                            "rg_lru": 0}
+                            "rg_lru": 0, "decode_attention": 0}
