@@ -21,6 +21,17 @@ model, which covers every SM once, so its profile has ``num_slices x n_sm``
 blocks: the engine's plan, the scheduler's s1:s2 (multiples of ``n_sm``) and
 the drain's rounds (``s / n_sm`` slices) then count the same thing.
 
+Spans (``repro_torch.spans``) name the work of a drain in a profiler's
+trace: ``serve.drain`` around the whole call, ``serve.plan`` (the engine's
+plan), ``serve.decide`` (each ``find_coschedule``), ``serve.round``, one
+``serve.step.<phase>`` a slice, ``serve.sync`` (the round's synchronize),
+and inside a step the model's ``model.embed``, ``model.views``,
+``model.mixer``, ``model.ffn`` and ``model.head``. They exist only while a
+profiler records: run drains under ``torch.profiler.profile`` (with
+``ProfilerActivity.CUDA`` on the card), call ``export_chrome_trace`` and
+read the ``serve.*`` and ``model.*`` names, each kernel tied to the span
+that launched it by its ``correlation`` id.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --demo
 """
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.core.costs import cell_cost
 from repro_torch.core.engine import LaneSpec, WorkloadEngine, run_fleet
@@ -310,26 +322,29 @@ class SharedPodServer:
         are issued interleaved, job by job, as the reference issues them
         asynchronously; on the CPU they run in that order. Every output is
         kept until the round's synchronize."""
-        cuda = self.device.type == "cuda"
-        if cuda:
-            cur = torch.cuda.current_stream(self.device)
-            for name, _ in pairs:
-                if name not in self._streams:
-                    self._streams[name] = torch.cuda.Stream(self.device)
-                # submit()'s allocations and the last round come first
-                self._streams[name].wait_stream(cur)
-        outs = []
-        for i in range(max(n for _, n in pairs)):
-            for name, n in pairs:
-                if i >= n:
-                    continue
-                if cuda:
-                    with torch.cuda.stream(self._streams[name]):
-                        outs.append(self._exec[name]())
-                else:
-                    outs.append(self._exec[name]())
-        self._sync()
-        return outs
+        with spans.span(spans.ROUND):
+            cuda = self.device.type == "cuda"
+            if cuda:
+                cur = torch.cuda.current_stream(self.device)
+                for name, _ in pairs:
+                    if name not in self._streams:
+                        self._streams[name] = torch.cuda.Stream(self.device)
+                    # submit()'s allocations and the last round come first
+                    self._streams[name].wait_stream(cur)
+            outs = []
+            for i in range(max(n for _, n in pairs)):
+                for name, n in pairs:
+                    if i >= n:
+                        continue
+                    with spans.span(spans.STEP[self.jobs[name].phase]):
+                        if cuda:
+                            with torch.cuda.stream(self._streams[name]):
+                                outs.append(self._exec[name]())
+                        else:
+                            outs.append(self._exec[name]())
+            with spans.span(spans.SYNC):
+                self._sync()
+            return outs
 
     def drain(self, *, max_rounds: int = 10000, plan_first: bool = True,
               arrival_rate: Optional[float] = None,
@@ -354,68 +369,73 @@ class SharedPodServer:
                 f"pending jobs with no registered profile/executable: "
                 f"{missing} — submit() must complete for every job "
                 "before drain()")
-        engine = WorkloadEngine()
-        sched = engine.scheduler_for(self.spec, self.profiles,
-                                     alpha_p=0.2, alpha_m=0.2, cp_margin=0.0)
-        plan = None
-        if plan_first:
-            plan = (self.plan_arrivals(engine, arrival_rate,
-                                       slo_deadline=slo_deadline,
-                                       policy=plan_policy)
-                    if arrival_rate is not None else self.plan(engine))
-        jid = fence = None
-        if daemon is not None:
-            jid, fence = self._register_drain_job(daemon, job_name,
-                                                  plan_policy)
-        t0 = time.time()
-        executed = []
-        while any(j.num_slices > 0 for j in self.jobs.values()):
+        with spans.span(spans.DRAIN):
+            engine = WorkloadEngine()
+            sched = engine.scheduler_for(self.spec, self.profiles,
+                                         alpha_p=0.2, alpha_m=0.2,
+                                         cp_margin=0.0)
+            plan = None
+            if plan_first:
+                with spans.span(spans.PLAN):
+                    plan = (self.plan_arrivals(engine, arrival_rate,
+                                               slo_deadline=slo_deadline,
+                                               policy=plan_policy)
+                            if arrival_rate is not None
+                            else self.plan(engine))
+            jid = fence = None
             if daemon is not None:
-                stopped = self._drain_control(daemon, jid, fence,
-                                              len(executed))
-                if stopped is not None:
-                    return {"rounds": executed,
-                            "wall_s": time.time() - t0,
-                            "predicted_gain":
-                                self._predicted_gain(executed),
-                            "plan": plan, "job_id": jid,
-                            "state": stopped}
-            act = [n for n, j in self.jobs.items() if j.num_slices > 0]
-            cs = sched.find_coschedule(act)
-            if cs.k2 is None:
-                n_run = min(self.jobs[cs.k1].num_slices, 8)
-                self._round([(cs.k1, n_run)])
-                self.jobs[cs.k1].num_slices -= n_run
-                executed.append((cs.k1, None, n_run, 0, 0.0))
-                continue
-            # balanced interleave: s1:s2 slices per round, one stream each
-            r1 = max(1, round(cs.s1 / self.spec.n_sm))
-            r2 = max(1, round(cs.s2 / self.spec.n_sm))
-            j1, j2 = self.jobs[cs.k1], self.jobs[cs.k2]
-            n1 = min(r1, j1.num_slices)
-            n2 = min(r2, j2.num_slices)
-            self._round([(cs.k1, n1), (cs.k2, n2)])
-            j1.num_slices -= n1
-            j2.num_slices -= n2
-            executed.append((cs.k1, cs.k2, n1, n2, cs.cp))
-            if len(executed) > max_rounds:
-                raise RuntimeError("scheduler did not drain")
-        wall = time.time() - t0
-        out = {"rounds": executed, "wall_s": wall,
-               "predicted_gain": self._predicted_gain(executed),
-               "plan": plan}
-        if daemon is not None:
-            out["job_id"] = jid
-            try:
-                daemon.store.transition(
-                    jid, FINISHED, "drained",
-                    result={"rounds": len(executed), "wall_s": wall,
-                            "predicted_gain": out["predicted_gain"]},
-                    fence=fence)
-                out["state"] = FINISHED
-            except StaleLease:
-                out["state"] = "lost"
-        return out
+                jid, fence = self._register_drain_job(daemon, job_name,
+                                                      plan_policy)
+            t0 = time.perf_counter()
+            executed = []
+            while any(j.num_slices > 0 for j in self.jobs.values()):
+                if daemon is not None:
+                    stopped = self._drain_control(daemon, jid, fence,
+                                                  len(executed))
+                    if stopped is not None:
+                        return {"rounds": executed,
+                                "wall_s": time.perf_counter() - t0,
+                                "predicted_gain":
+                                    self._predicted_gain(executed),
+                                "plan": plan, "job_id": jid,
+                                "state": stopped}
+                act = [n for n, j in self.jobs.items() if j.num_slices > 0]
+                with spans.span(spans.DECIDE):
+                    cs = sched.find_coschedule(act)
+                if cs.k2 is None:
+                    n_run = min(self.jobs[cs.k1].num_slices, 8)
+                    self._round([(cs.k1, n_run)])
+                    self.jobs[cs.k1].num_slices -= n_run
+                    executed.append((cs.k1, None, n_run, 0, 0.0))
+                    continue
+                # balanced interleave: s1:s2 slices a round, one stream each
+                r1 = max(1, round(cs.s1 / self.spec.n_sm))
+                r2 = max(1, round(cs.s2 / self.spec.n_sm))
+                j1, j2 = self.jobs[cs.k1], self.jobs[cs.k2]
+                n1 = min(r1, j1.num_slices)
+                n2 = min(r2, j2.num_slices)
+                self._round([(cs.k1, n1), (cs.k2, n2)])
+                j1.num_slices -= n1
+                j2.num_slices -= n2
+                executed.append((cs.k1, cs.k2, n1, n2, cs.cp))
+                if len(executed) > max_rounds:
+                    raise RuntimeError("scheduler did not drain")
+            wall = time.perf_counter() - t0
+            out = {"rounds": executed, "wall_s": wall,
+                   "predicted_gain": self._predicted_gain(executed),
+                   "plan": plan}
+            if daemon is not None:
+                out["job_id"] = jid
+                try:
+                    daemon.store.transition(
+                        jid, FINISHED, "drained",
+                        result={"rounds": len(executed), "wall_s": wall,
+                                "predicted_gain": out["predicted_gain"]},
+                        fence=fence)
+                    out["state"] = FINISHED
+                except StaleLease:
+                    out["state"] = "lost"
+            return out
 
     def _predicted_gain(self, executed) -> float:
         """Aggregate modeled co-scheduling profit over executed rounds."""

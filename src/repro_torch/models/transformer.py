@@ -44,6 +44,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -286,70 +287,72 @@ def apply_block(x, bp, cfg, sig, positions, *, enc_out=None, cache=None,
     _check_supported(cfg, sig)
     kind, is_moe = sig
     aux = torch.zeros((), device=x.device)
-    h = L.norm(x, bp["norm1"], cfg.norm)
-    if kind == "attn":
-        attend = A.mla_forward if cfg.mla is not None else A.gqa_forward
-        a, cache = attend(h, bp["attn"], cfg, positions, cache=cache, t=t)
-    elif kind == "local":
-        a = _local_attention_block(h, bp["attn"], cfg, positions, cache, t)
-    elif kind == "rwkv6":
-        st = (cache["state"], cache["x_last_t"]) if cache is not None \
-            else (None, None)
-        a, (state, x_last) = R.rwkv6_forward(h, bp["tmix"], cfg,
-                                             state=st[0], x_last=st[1])
-        if cache is not None:
-            _store(cache, "state", state)
-            _store(cache, "x_last_t", x_last)
-    else:
-        st = ({"h": cache["h"], "conv": cache["conv"]}
-              if cache is not None else None)
-        a, ns = R.rglru_forward(h, bp["rec"], cfg, state=st)
-        if cache is not None:
-            _store(cache, "h", ns["h"])
-            _store(cache, "conv", ns["conv"])
-    x = x + a
-    x = constrain(x, "dp", "model", None)
-    if "xattn" in bp:                                      # cross-attention
-        hx = L.norm(x, bp["norm_x"], cfg.norm)
-        xp = bp["xattn"]
-        if cache is not None and enc_out is None:
-            # decode: attend over the cross K/V in the cache, as it stands
-            q = torch.einsum("bsd,dhk->bshk", hx, xp["wq"])
-            o = A.decode_attention(q, cache["xk"], cache["xv"],
-                                   cache["xk"].shape[1])
-            o = torch.einsum("bshk,hkd->bsd", o, xp["wo"])
+    with spans.span(spans.MIXER):
+        h = L.norm(x, bp["norm1"], cfg.norm)
+        if kind == "attn":
+            attend = A.mla_forward if cfg.mla is not None else A.gqa_forward
+            a, cache = attend(h, bp["attn"], cfg, positions, cache=cache, t=t)
+        elif kind == "local":
+            a = _local_attention_block(h, bp["attn"], cfg, positions, cache, t)
+        elif kind == "rwkv6":
+            st = (cache["state"], cache["x_last_t"]) if cache is not None \
+                else (None, None)
+            a, (state, x_last) = R.rwkv6_forward(h, bp["tmix"], cfg,
+                                                 state=st[0], x_last=st[1])
+            if cache is not None:
+                _store(cache, "state", state)
+                _store(cache, "x_last_t", x_last)
         else:
-            o, _ = A.gqa_forward(hx, xp, cfg, positions, causal=False,
-                                 kv_source=enc_out)
-            if cache is not None:                          # store cross K/V
-                cache["xk"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
-                                               xp["wk"]))
-                cache["xv"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
-                                               xp["wv"]))
-        x = x + o
-    h2 = L.norm(x, bp["norm2"], cfg.norm)
-    if kind == "rwkv6":
-        f, x_last_c = R.rwkv6_cmix(
-            h2, bp["cmix"],
-            x_last=cache["x_last_c"] if cache is not None else None)
-        if cache is not None:
-            _store(cache, "x_last_c", x_last_c)
-    elif is_moe:
-        mesh = current_mesh()
-        n_model = axis_size(mesh, "model") if mesh is not None else 1
-        blk = seq_block()
-        s_all = h2.shape[1] * (blk.seq_size if blk is not None else 1)
-        use_ep = (cfg.moe_impl == "ep" and current_layout() == "2d"
-                  and n_model > 1 and s_all % n_model == 0)
-        if use_ep and blk is not None:       # h2 is this rank's EP shard
-            f, aux = M.moe_ffn_ep_block(h2, bp["moe"], cfg, blk)
-        elif use_ep:
-            f, aux = M.moe_ffn_ep_sharded(h2, bp["moe"], cfg, mesh)
+            st = ({"h": cache["h"], "conv": cache["conv"]}
+                  if cache is not None else None)
+            a, ns = R.rglru_forward(h, bp["rec"], cfg, state=st)
+            if cache is not None:
+                _store(cache, "h", ns["h"])
+                _store(cache, "conv", ns["conv"])
+        x = x + a
+        x = constrain(x, "dp", "model", None)
+        if "xattn" in bp:                                  # cross-attention
+            hx = L.norm(x, bp["norm_x"], cfg.norm)
+            xp = bp["xattn"]
+            if cache is not None and enc_out is None:
+                # decode: attend over the cross K/V in the cache, as it stands
+                q = torch.einsum("bsd,dhk->bshk", hx, xp["wq"])
+                o = A.decode_attention(q, cache["xk"], cache["xv"],
+                                       cache["xk"].shape[1])
+                o = torch.einsum("bshk,hkd->bsd", o, xp["wo"])
+            else:
+                o, _ = A.gqa_forward(hx, xp, cfg, positions, causal=False,
+                                     kv_source=enc_out)
+                if cache is not None:                      # store cross K/V
+                    cache["xk"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
+                                                   xp["wk"]))
+                    cache["xv"].copy_(torch.einsum("bsd,dhk->bshk", enc_out,
+                                                   xp["wv"]))
+            x = x + o
+    with spans.span(spans.FFN):
+        h2 = L.norm(x, bp["norm2"], cfg.norm)
+        if kind == "rwkv6":
+            f, x_last_c = R.rwkv6_cmix(
+                h2, bp["cmix"],
+                x_last=cache["x_last_c"] if cache is not None else None)
+            if cache is not None:
+                _store(cache, "x_last_c", x_last_c)
+        elif is_moe:
+            mesh = current_mesh()
+            n_model = axis_size(mesh, "model") if mesh is not None else 1
+            blk = seq_block()
+            s_all = h2.shape[1] * (blk.seq_size if blk is not None else 1)
+            use_ep = (cfg.moe_impl == "ep" and current_layout() == "2d"
+                      and n_model > 1 and s_all % n_model == 0)
+            if use_ep and blk is not None:       # h2 is this rank's EP shard
+                f, aux = M.moe_ffn_ep_block(h2, bp["moe"], cfg, blk)
+            elif use_ep:
+                f, aux = M.moe_ffn_ep_sharded(h2, bp["moe"], cfg, mesh)
+            else:
+                f, aux = M.moe_ffn(h2, bp["moe"], cfg, group_size=moe_group)
         else:
-            f, aux = M.moe_ffn(h2, bp["moe"], cfg, group_size=moe_group)
-    else:
-        f = L.mlp(h2, bp["mlp"], cfg.act)
-    return constrain(x + f, "dp", "model", None), cache, aux
+            f = L.mlp(h2, bp["mlp"], cfg.act)
+        return constrain(x + f, "dp", "model", None), cache, aux
 
 
 # ===================================================================== #
@@ -442,11 +445,13 @@ def _run_stages(params, cfg, x, positions, *, enc_out=None, caches=None,
     loss)."""
     aux = torch.zeros((), device=x.device)
     for si, st in enumerate(stage_plan(cfg)):
-        layers = _unstack(params[f"stage{si}"], st.repeats)
+        with spans.span(spans.VIEWS):
+            layers = _unstack(params[f"stage{si}"], st.repeats)
         cs = caches.get(f"stage{si}") if caches is not None else None
         for r in range(st.repeats):
-            cc = {sub: _tree_map(lambda a: a[r], c) for sub, c in cs.items()} \
-                if cs is not None else None
+            with spans.span(spans.VIEWS):
+                cc = {sub: _tree_map(lambda a: a[r], c)
+                      for sub, c in cs.items()} if cs is not None else None
 
             def body(x, _lp=layers[r], _cc=cc, _st=st):
                 aux_r = torch.zeros((), device=x.device)
@@ -509,23 +514,25 @@ def _forward(params, cfg, batch, *, caches=None, t=None, moe_group=0,
     tokens = batch["tokens"]
     b, s = tokens.shape
     blk = seq_block()
-    if "positions" in batch:
-        positions = batch["positions"]
-    else:                     # global: a sequence block starts at its offset
-        start = (t or 0) + (blk.seq_index * s if blk is not None else 0)
-        positions = start + torch.arange(s, device=tokens.device)
-        positions = positions[None].expand(b, s)
+    with spans.span(spans.EMBED):
+        if "positions" in batch:
+            positions = batch["positions"]
+        else:                 # global: a sequence block starts at its offset
+            start = (t or 0) + (blk.seq_index * s if blk is not None else 0)
+            positions = start + torch.arange(s, device=tokens.device)
+            positions = positions[None].expand(b, s)
+        x = _embed(params, cfg, tokens, positions, batch.get("patches"))
+        x = constrain(x, "dp", "model", None)
+        if blk is not None:   # the mixers see the whole sequence's positions
+            positions = blk.gather_plain(positions, dim=-1)
     enc_out = None
     if cfg.is_encoder_decoder and "audio" in batch:
         enc_out = encode(params, cfg, batch["audio"])
-    x = _embed(params, cfg, tokens, positions, batch.get("patches"))
-    x = constrain(x, "dp", "model", None)
-    if blk is not None:       # the mixers see the whole sequence's positions
-        positions = blk.gather_plain(positions, dim=-1)
     x, aux = _run_stages(params, cfg, x, positions, enc_out=enc_out,
                          caches=caches, t=t, moe_group=moe_group)
-    h_final = L.norm(x, params["final_norm"], cfg.norm)
-    logits = constrain(h_final @ params["lm_head"], "dp", None, "model")
+    with spans.span(spans.HEAD):
+        h_final = L.norm(x, params["final_norm"], cfg.norm)
+        logits = constrain(h_final @ params["lm_head"], "dp", None, "model")
     if return_hidden:
         return logits, caches, aux, h_final
     return logits, caches, aux
