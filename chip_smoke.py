@@ -2884,6 +2884,7 @@ def main() -> int:
     srv.submit(prefill)
     srv.submit(decode)
     t_submit = time.time() - t0
+    log(f"[serve] {srv.capture_report()}")
     slices = {name: job.num_slices for name, job in srv.jobs.items()}
     twin = twin_server(srv, TPU_V5E, tpu_profile_from_costs)
     res = srv.drain()
@@ -2959,6 +2960,7 @@ def main() -> int:
     for job in jobs:
         srv.submit(job, params=weights[job.arch])
     t_submit = time.time() - t0
+    log(f"[serve-rec] {srv.capture_report()}")
     slices = {name: job.num_slices for name, job in srv.jobs.items()}
     twin = twin_server(srv, TPU_V5E, tpu_profile_from_costs)
     res = srv.drain()
@@ -3042,6 +3044,7 @@ def main() -> int:
         srv = h100_server()
         for job in arch_jobs:
             srv.submit(job, params=wts)
+        log(f"[serve-slm] {srv.capture_report()}")
         res = srv.drain()
         for name in _build.NAMES:
             slm_launches[name] += ops.LAUNCHES[name]
@@ -3131,6 +3134,7 @@ def main() -> int:
         srv = h100_server()
         for job in arch_jobs:
             srv.submit(job, params=wts, cfg=cfg)
+        log(f"[serve-ds] {srv.capture_report()}")
         v5e_rounds = model_decisions(srv, TPU_V5E, tpu_profile_from_costs)
         res = srv.drain()
         for name in _build.NAMES:
@@ -3227,6 +3231,7 @@ def main() -> int:
     for job in mm_jobs:
         srv.submit(job, params=weights[job.arch])
     t_submit = time.time() - t0
+    log(f"[serve-mm] {srv.capture_report()}")
     v5e_rounds = model_decisions(srv, TPU_V5E, tpu_profile_from_costs)
     res = srv.drain()
     mm_launches = dict(ops.LAUNCHES)

@@ -10,8 +10,9 @@ imported: the first launch builds its kernel, and ``build()`` builds several
 at once, one ``nvcc`` process each, all started together.
 
 ``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
-launches its kernel and nowhere else; ``repro_torch.kernels.ops`` re-exports
-it.
+launches its kernel and nowhere else, and a CUDA graph's replay adds what its
+wrappers counted while it was captured (``launch/serve.py``), a capture
+itself adding nothing; ``repro_torch.kernels.ops`` re-exports it.
 """
 from __future__ import annotations
 

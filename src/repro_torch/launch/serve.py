@@ -10,7 +10,10 @@ slice ratio (Eq. 8), and the dispatcher interleaves their slices.
 On the card each round issues the pair's slices on two CUDA streams, one
 per job, and synchronises at the end of the round: the two jobs' kernels
 share the SMs, which is the paper's concurrent kernel execution. On the
-CPU the slices run in order.
+CPU the slices run in order. A decode tenant's step is the same kernels
+on the same buffers at every call, so on the card ``submit`` captures it
+once into a CUDA graph and every slice replays the graph: one launch where
+the eager step makes thousands.
 
 The hardware model is the caller's: ``gpu_spec`` and ``profile_fn``
 default to ``TPU_V5E`` and ``tpu_profile_from_costs``, exactly as in the
@@ -25,8 +28,9 @@ Spans (``repro_torch.spans``) name the work of a drain in a profiler's
 trace: ``serve.drain`` around the whole call, ``serve.plan`` (the engine's
 plan), ``serve.decide`` (each ``find_coschedule``), ``serve.round``, one
 ``serve.step.<phase>`` a slice, ``serve.sync`` (the round's synchronize),
-and inside a step the model's ``model.embed``, ``model.views``,
-``model.mixer``, ``model.ffn`` and ``model.head``. They exist only while a
+and inside a step ``serve.replay`` around a captured step's replay, or
+the model's ``model.embed``, ``model.views``, ``model.mixer``,
+``model.ffn`` and ``model.head``. They exist only while a
 profiler records: run drains under ``torch.profiler.profile`` (with
 ``ProfilerActivity.CUDA`` on the card), call ``export_chrome_trace`` and
 read the ``serve.*`` and ``model.*`` names, each kernel tied to the span
@@ -57,6 +61,7 @@ from repro_torch.core.profiles import (H100, TPU_V5E, GPUSpec, KernelProfile,
 from repro_torch.core.simulator import IPCTable
 from repro_torch.data.synthetic import make_batch, poisson_arrivals
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 
@@ -105,6 +110,8 @@ class SharedPodServer:
         self.log: List[tuple] = []
         self._plan_truth: Optional[IPCTable] = None
         self._streams: Dict[str, torch.cuda.Stream] = {}
+        # a decode tenant's capture on the card: None, or why it failed
+        self.captures: Dict[str, Optional[str]] = {}
 
     # ---- job admission: build, warm up, profile, register ---- #
     def submit(self, job: Job, params=None, cfg=None):
@@ -114,7 +121,9 @@ class SharedPodServer:
         reference. ``cfg`` is the config the step runs, by default the
         arch's reduced or full one (``use_reduced``): a depth-cut config
         lets a model too large for the card run at full width. The
-        scheduler's profile is the full arch's whatever ``cfg`` is."""
+        scheduler's profile is the full arch's whatever ``cfg`` is. On the
+        card a decode tenant's step, whose batch, token and position are
+        fixed here, then runs as one CUDA graph (``_replayed``)."""
         if cfg is None:
             full_cfg = get_config(job.arch)
             cfg = reduced(full_cfg) if self.use_reduced else full_cfg
@@ -140,13 +149,76 @@ class SharedPodServer:
             def run(params=params, cfg=cfg, batch=batch):
                 logits, _, _ = T.forward(params, cfg, batch)
                 return logits
-        run()                               # warm-up: builds the kernels
+        if job.phase == "decode" and self.device.type == "cuda":
+            run = self._replayed(job.name, run, params, caches, tok)
+        else:
+            run()                           # warm-up: builds the kernels
         self._sync()
         prof = job_profile(job, self.spec, self.profile_fn)
         self.jobs[job.name] = job
         self.profiles[job.name] = prof
         self._exec[job.name] = run
         self.log.append(("submit", job.name, prof.pur, prof.mur, prof.rm))
+
+    def _replayed(self, name: str, step: Callable, params, caches, tok):
+        """A decode tenant's ``step`` as a CUDA graph replay. The step runs
+        once on a side stream (the warm-up, which also loads its kernels and
+        cuBLAS handles) and is then captured there; a capture launches
+        nothing, so the caches stay one step on and ``ops.LAUNCHES`` is put
+        back to what it was before it. The graph reads ``params``, ``tok``
+        and ``caches`` where they lie and writes the caches in place, its
+        activations in a memory pool of its own; each call replays it on the
+        caller's stream, adds to ``ops.LAUNCHES`` the launches its capture
+        counted, and returns a copy of its logits, which the next replay
+        overwrites. A step that cannot be captured (one that waits on the
+        host) stays eager; ``captures[name]`` is None or its error."""
+        caller = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            step()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(ops.LAUNCHES)
+        rng = torch.cuda.default_generators[side.device.index]
+        rng_state = rng.clone_state()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                logits = step()
+        except RuntimeError as e:
+            # a failed capture leaves its stream current and the card's
+            # generator in capture mode: put both back
+            torch.cuda.set_stream(caller)
+            rng.graphsafe_set_state(rng_state)
+            cause = e.__context__ or e
+            first = str(cause).split("\n", 1)[0]
+            self.captures[name] = f"{type(cause).__name__}: {first}"
+            return step
+        finally:
+            counted = {k: n - before[k] for k, n in ops.LAUNCHES.items()
+                       if n != before[k]}
+            ops.LAUNCHES.update(before)
+        self.captures[name] = None
+
+        def replay(graph=graph, logits=logits, params=params, caches=caches,
+                   tok=tok):
+            with spans.span(spans.REPLAY):
+                graph.replay()
+            for k, n in counted.items():
+                ops.LAUNCHES[k] += n
+            with torch.inference_mode():
+                return logits.clone()
+        return replay
+
+    def capture_report(self) -> str:
+        """One line: the decode tenants whose step runs as one CUDA graph,
+        and those whose capture failed, with why."""
+        done = [f"{n} ({self.jobs[n].arch})"
+                for n, err in self.captures.items() if err is None]
+        failed = [f"{n} ({self.jobs[n].arch}): {err}"
+                  for n, err in self.captures.items() if err is not None]
+        return ("decode steps as one CUDA graph: " + (", ".join(done) or
+                "none") + "; eager, the capture failed: " +
+                ("; ".join(failed) or "none"))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -476,6 +548,8 @@ def demo(device=None):
     for ev in server.log:
         print("submitted", ev[1],
               f"PUR={ev[2]:.2f} MUR={ev[3]:.2f} R_m={ev[4]:.2f}")
+    if dev.type == "cuda":
+        print(server.capture_report())
     res = server.drain()
     if res["plan"]:
         print(f"engine plan (H100 model): predicted makespan "

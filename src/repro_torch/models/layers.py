@@ -9,6 +9,7 @@ draw from an explicit ``torch.Generator``; they cannot reproduce
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -110,6 +111,14 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_frequencies`` on ``device``, copied there once: a step that
+    copies nothing from the host can be captured into a CUDA graph. Never
+    evicted: a captured graph reads the tensor where it lies."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta), device=device)
+
+
 def _rotate(x, ang):
     """Rotate x's split halves by the angles ``ang`` (..., S, 1, d/2)."""
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -121,7 +130,7 @@ def _rotate(x, ang):
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
+    freqs = _device_frequencies(d, theta, x.device)
     ang = positions[..., :, None, None].float() * freqs      # (..., S, 1, d/2)
     return _rotate(x, ang)
 
@@ -139,7 +148,7 @@ def apply_mrope(x, positions3, theta: float = 10000.0):
     ids, each driving its own contiguous band of frequencies; where
     t == h == w this is RoPE."""
     d = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
+    freqs = _device_frequencies(d, theta, x.device)
     p = positions3.float()
     parts, start = [], 0
     for axis, n in enumerate(mrope_sections(d)):

@@ -9,8 +9,9 @@ launched it by the ``correlation`` id the two share. One ``serve.drain``
 span holds everything a drain did.
 
 The names are this module's constants, one place for each: the serving
-loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase) and the model's
-(``EMBED`` ... ``HEAD``). ``NAMES`` is every one of them.
+loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase, ``REPLAY``
+around a captured step's graph replay) and the model's (``EMBED`` ...
+``HEAD``). ``NAMES`` is every one of them.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ PLAN = "serve.plan"
 DECIDE = "serve.decide"
 ROUND = "serve.round"
 SYNC = "serve.sync"
+REPLAY = "serve.replay"
 STEP = {phase: f"serve.step.{phase}"
         for phase in ("prefill", "decode", "train")}
 EMBED = "model.embed"
@@ -30,7 +32,7 @@ VIEWS = "model.views"
 MIXER = "model.mixer"
 FFN = "model.ffn"
 HEAD = "model.head"
-NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, *STEP.values(),
+NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, REPLAY, *STEP.values(),
                    EMBED, VIEWS, MIXER, FFN, HEAD})
 
 _OFF = contextlib.nullcontext()

@@ -58,6 +58,7 @@ def _within(inner, outer):
 
 def test_off_a_span_is_the_shared_null_context():
     assert not torch._C._autograd._profiler_enabled()
+    assert spans.REPLAY == "serve.replay" and spans.REPLAY in spans.NAMES
     got = [spans.span(name) for name in sorted(spans.NAMES)]
     assert all(s is spans._OFF for s in got)
     with spans.span("serve.drain") as inside:
@@ -87,6 +88,7 @@ def test_a_profiled_drain_holds_every_span(server, tmp_path):
         if k2 is not None:
             ran[k2] += n2
     steps = by["serve.step.prefill"] + by["serve.step.decode"]
+    assert not by[spans.REPLAY]          # on the CPU every step runs eagerly
     assert len(by["serve.step.prefill"]) == ran["a-phi3-prefill"] == 2
     assert len(by["serve.step.decode"]) == ran["b-phi3-decode"] == 4
     for m in steps + by["serve.sync"]:
