@@ -10,6 +10,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     MoEConfig,
     PREFILL_32K,
+    RopeScaling,
     SHAPES,
     SMOKE_DECODE,
     SMOKE_SHAPE,
@@ -30,6 +31,7 @@ _REGISTRY = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
     "qwen2-vl-7b": "qwen2_vl_7b",
 }
 

@@ -8,6 +8,8 @@ dry-run lowers and the Kernelet scheduler treats as a schedulable kernel.
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections.abc import Mapping
 from typing import Optional
 
 
@@ -18,22 +20,77 @@ class MoEConfig:
     d_ff_expert: int
     num_shared_experts: int = 0
     first_dense_layers: int = 0
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25   # 0: dropless, every pair is kept
     router_noise: float = 0.0
     aux_loss_coef: float = 0.001
     router_act: str = "softmax"      # softmax | sigmoid (DeepSeek-V3)
     a2a_dtype: str = "bf16"          # bf16 | int8 (quantized EP dispatch
                                      # with per-row scales; halves ICI bytes)
+    norm_topk_prob: bool = True      # False: weight each pair by its raw
+                                     # router probability (DeepSeek-V2)
 
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek-style Multi-head Latent Attention."""
+    """DeepSeek-style Multi-head Latent Attention. ``q_lora_rank`` 0 means
+    a direct query projection ``wq`` (DeepSeek-V2-Lite), else the query
+    goes through a latent of that rank (``wq_a``, ``q_norm``, ``wq_b``)."""
     kv_lora_rank: int = 512
     q_lora_rank: int = 1536
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN RoPE scaling (arXiv:2309.00071), under the keys of a published
+    ``config.json``'s ``rope_scaling``. Rotary pairs that turn fewer than
+    ``beta_slow`` times over the original context are slowed by
+    ``factor``, those that turn more than ``beta_fast`` times are kept, and
+    the pairs between follow a linear ramp, and an attention's softmax
+    scale is multiplied by mscale(``mscale_all_dim``) squared. YaRN also
+    scales cos and sin by mscale(``mscale``) / mscale(``mscale_all_dim``),
+    which is 1 in every published DeepSeek config; another ratio is
+    refused."""
+    type: str = "yarn"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope_scaling type {self.type!r}: only 'yarn'")
+        if self._mscale(self.mscale) != self._mscale(self.mscale_all_dim):
+            raise ValueError("YaRN with mscale != mscale_all_dim scales cos "
+                             "and sin, which the port does not")
+
+    def _mscale(self, m: float) -> float:
+        return 1.0 if self.factor <= 1 else 0.1 * m * math.log(self.factor) \
+            + 1.0
+
+    def correction_range(self, dim: int, theta: float) -> tuple:
+        """(low, high): the rotary pairs of a ``dim``-wide rope between
+        which the ramp runs."""
+        def pair(rotations):
+            return dim * math.log(self.original_max_position_embeddings
+                                  / (rotations * 2 * math.pi)) \
+                / (2 * math.log(theta))
+        return (max(math.floor(pair(self.beta_fast)), 0),
+                min(math.ceil(pair(self.beta_slow)), dim - 1))
+
+    @property
+    def softmax_gain(self) -> float:
+        """What an attention's 1/sqrt(d) softmax scale is multiplied by."""
+        if not self.mscale_all_dim:
+            return 1.0
+        return self._mscale(self.mscale_all_dim) ** 2
+
+
+_NESTED = {"moe": MoEConfig, "mla": MLAConfig, "rope_scaling": RopeScaling}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +110,7 @@ class ModelConfig:
     local_window: int = 2048
     pos_kind: str = "rope"           # rope | mrope | learned | none
     rope_theta: float = 10000.0
+    rope_scaling: Optional[RopeScaling] = None
     mla: Optional[MLAConfig] = None
 
     # --- ffn ---
@@ -101,6 +159,11 @@ class ModelConfig:
                                      # weight gathers
 
     def __post_init__(self):
+        # nested sizes given as mappings (a JSON file's) become dataclasses
+        for key, kind in _NESTED.items():
+            value = getattr(self, key)
+            if isinstance(value, Mapping):
+                object.__setattr__(self, key, kind(**value))
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.lru_width == 0:
@@ -138,7 +201,11 @@ class ModelConfig:
             if kind in ("attn", "local"):
                 if self.mla is not None:
                     m = self.mla
-                    n += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * (m.qk_nope_dim + m.qk_rope_dim)
+                    qk = self.num_heads * (m.qk_nope_dim + m.qk_rope_dim)
+                    if m.q_lora_rank:
+                        n += d * m.q_lora_rank + m.q_lora_rank * qk
+                    else:                             # direct wq
+                        n += d * qk
                     n += d * (m.kv_lora_rank + m.qk_rope_dim)
                     n += m.kv_lora_rank * self.num_heads * (m.qk_nope_dim + m.v_head_dim)
                     n += self.num_heads * m.v_head_dim * d
@@ -232,7 +299,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             cfg.moe, num_experts=8, top_k=2, d_ff_expert=64,
             first_dense_layers=min(cfg.moe.first_dense_layers, 1))
     if cfg.mla is not None:
-        changes["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=64,
+        changes["mla"] = MLAConfig(kv_lora_rank=32,
+                                   q_lora_rank=64 if cfg.mla.q_lora_rank
+                                   else 0,
                                    qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
     return dataclasses.replace(cfg, **changes)
 

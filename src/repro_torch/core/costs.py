@@ -33,7 +33,11 @@ def layer_flops_fwd(cfg, b, s, kind: str, is_moe: bool, kv_len=None) -> float:
         if cfg.mla is not None:
             m = cfg.mla
             qk_d = m.qk_nope_dim + m.qk_rope_dim
-            fl += 2 * t * d * m.q_lora_rank + 2 * t * m.q_lora_rank * h * qk_d
+            if m.q_lora_rank:
+                fl += 2 * t * d * m.q_lora_rank + \
+                    2 * t * m.q_lora_rank * h * qk_d
+            else:                                         # direct wq
+                fl += 2 * t * d * h * qk_d
             fl += 2 * t * d * (m.kv_lora_rank + m.qk_rope_dim)
             att_len = kv_len if kv_len else s
             if kind == "local":
@@ -78,7 +82,9 @@ def layer_flops_fwd(cfg, b, s, kind: str, is_moe: bool, kv_len=None) -> float:
     elif is_moe:
         m = cfg.moe
         fl += 2 * t * d * m.num_experts               # router
-        routed_t = t * m.top_k * m.capacity_factor
+        # capacity-padded pairs; a dropless route (capacity_factor 0)
+        # computes every pair
+        routed_t = t * m.top_k * (m.capacity_factor or 1.0)
         fl += 2 * routed_t * d * m.d_ff_expert * _ffn_mult(cfg.act)
         fl += 2 * t * d * m.d_ff_expert * m.num_shared_experts * _ffn_mult(cfg.act)
     else:

@@ -81,12 +81,17 @@ def init_attention(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
     kw = dict(dtype=dtype, device=device, lead=lead)
     if cfg.mla is not None:
         m = cfg.mla
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        if m.q_lora_rank:
+            q = {"wq_a": L.dense_init(generator, (d, m.q_lora_rank), **kw),
+                 "q_norm": L.init_norm("rmsnorm", m.q_lora_rank,
+                                       device=device, lead=lead),
+                 "wq_b": L.dense_init(generator, (m.q_lora_rank, h, qk),
+                                      **kw)}
+        else:                                   # a direct query projection
+            q = {"wq": L.dense_init(generator, (d, h, qk), **kw)}
         return {
-            "wq_a": L.dense_init(generator, (d, m.q_lora_rank), **kw),
-            "q_norm": L.init_norm("rmsnorm", m.q_lora_rank, device=device,
-                                  lead=lead),
-            "wq_b": L.dense_init(generator, (m.q_lora_rank, h, m.qk_nope_dim
-                                             + m.qk_rope_dim), **kw),
+            **q,
             "wkv_a": L.dense_init(generator, (d, m.kv_lora_rank
                                               + m.qk_rope_dim), **kw),
             "kv_norm": L.init_norm("rmsnorm", m.kv_lora_rank, device=device,
@@ -486,7 +491,12 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     ``ops.flash_attention`` at the q.k dim, v padded to it. A decode step
     attends over the cache's first t + 1 rows: in the latent space under
     ``mla_decode="absorbed"`` (the reference's default), or over K/V
-    expanded from the cached latents under ``"expand"``.
+    expanded from the cached latents under ``"expand"``. The query comes
+    through a latent (``wq_a``, ``q_norm``, ``wq_b``) or, with
+    ``q_lora_rank`` 0, straight from x (``wq``). Under YaRN
+    (``cfg.rope_scaling``) the rope dims rotate by its frequencies and the
+    softmax scale takes its mscale^2: q is multiplied by it before the
+    kernels, which scale by 1/sqrt(dn + dr) themselves.
 
     On a sequence block the latents of this rank's positions are gathered
     over ``model`` and this rank's heads expanded from them; a prompt then
@@ -497,25 +507,33 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     m = cfg.mla
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
     blk = seq_block()
-    q_lat = L.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"])
+    if m.q_lora_rank:
+        q_lat = L.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"])
+        wq = p["wq_b"]
+    else:               # a direct query projection: x stands for the latent
+        q_lat, wq = x, p["wq"]
     kv_a = x @ p["wkv_a"]                                    # (B,S,r+dr)
     if blk is not None:
         both = blk.gather_seq(torch.cat([q_lat, kv_a], dim=-1))
         q_lat, kv_a = both.split([q_lat.shape[-1], kv_a.shape[-1]], dim=-1)
     hs = blk.share(cfg.num_heads) if blk is not None else None
-    wq_b, wkv_b, wo = ((p["wq_b"], p["wkv_b"], p["wo"]) if hs is None else
-                       (p["wq_b"][:, hs], p["wkv_b"][:, hs], p["wo"][hs]))
+    wq, wkv_b, wo = ((wq, p["wkv_b"], p["wo"]) if hs is None else
+                     (wq[:, hs], p["wkv_b"][:, hs], p["wo"][hs]))
     b, s, _ = kv_a.shape
+    # YaRN's mscale^2 on the softmax scale
+    gain = cfg.rope_scaling.softmax_gain if cfg.rope_scaling else 1.0
 
     # queries
-    q = torch.einsum("bsr,rhk->bshk", q_lat, wq_b)           # (B,S,H,dn+dr)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, wq)             # (B,S,H,dn+dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta,
+                          cfg.rope_scaling)
 
     # latent kv
     c_kv = L.rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"]["scale"])
     k_rope = L.apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :],
-                          positions, cfg.rope_theta)[:, :, 0, :]
+                          positions, cfg.rope_theta,
+                          cfg.rope_scaling)[:, :, 0, :]
 
     group, offset = None, 0
     if cache is not None:
@@ -545,7 +563,8 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
                 offset + torch.arange(c_kv.shape[1], device=x.device)
                 < t + 1)
             o = _mla_absorbed_decode(q_nope, q_rope, c_kv, k_rope,
-                                     p["wkv_b"], dn, x.dtype, valid, group)
+                                     p["wkv_b"], dn, x.dtype, valid, group,
+                                     gain)
             return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
     # expand k/v from the latents
@@ -554,6 +573,8 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
     k = torch.cat([k_nope, k_rope.to(x.dtype)[:, :, None, :].expand(
         *k_nope.shape[:-1], dr)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
+    if gain != 1.0:     # the kernels scale by 1/sqrt(dn + dr) themselves
+        qq = qq * gain
     qq, k, vv = _constrain_qkv(qq, k, vv)
     if cache is not None and s == 1:
         o = decode_attention(qq, k, _pad_v(vv, dn + dr), t + 1,
@@ -565,16 +586,16 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
 
 
 def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype,
-                         valid=None, group=None):
+                         valid=None, group=None, gain: float = 1.0):
     """One token's attention in the latent space: the score is
     (q_nope W_k^T) . c_kv + q_rope . k_rope, and the output
     (p . c_kv) W_v, so K/V are never expanded over the cache. ``valid``
     (T,) masks the cache's rows; with ``group`` the rows are this rank's
     block and the latent output is combined over the ranks
-    (``split_k_combine``)."""
+    (``split_k_combine``). ``gain`` multiplies the softmax scale."""
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]     # (r,H,dn), (r,H,dv)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_k)      # (B,1,H,r)
-    scale = 1.0 / np.sqrt(dn + q_rope.shape[-1])
+    scale = gain / np.sqrt(dn + q_rope.shape[-1])
     ckv_f = ckv.float()
     logits = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_f)
               + torch.einsum("bshk,btk->bhst", q_rope.float(),

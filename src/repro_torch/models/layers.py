@@ -107,16 +107,31 @@ def is_gated(name: str) -> bool:
 # --------------------------------------------------------------------- #
 # rotary embeddings
 # --------------------------------------------------------------------- #
-def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
-    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+def rope_frequencies(head_dim: int, theta: float,
+                     scaling=None) -> np.ndarray:
+    """RoPE's frequencies theta^(-2i/d); under YaRN ``scaling`` (a
+    ``configs.RopeScaling``) pair i takes ramp(i) of the frequency divided
+    by the factor and the rest of its own, ramp rising linearly from 0 at
+    the correction range's low pair to 1 at its high pair."""
+    freqs = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                             / head_dim))
+    if scaling is None:
+        return freqs
+    low, high = scaling.correction_range(head_dim, theta)
+    ramp = np.clip((np.arange(head_dim // 2, dtype=np.float32) - low)
+                   / max(high - low, 1e-3), 0.0, 1.0)
+    return (freqs / scaling.factor * ramp + freqs * (1.0 - ramp)).astype(
+        np.float32)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+def _device_frequencies(head_dim: int, theta: float, device,
+                        scaling=None) -> torch.Tensor:
     """``rope_frequencies`` on ``device``, copied there once: a step that
     copies nothing from the host can be captured into a CUDA graph. Never
     evicted: a captured graph reads the tensor where it lies."""
-    return torch.as_tensor(rope_frequencies(head_dim, theta), device=device)
+    return torch.as_tensor(rope_frequencies(head_dim, theta, scaling),
+                           device=device)
 
 
 def _rotate(x, ang):
@@ -127,10 +142,11 @@ def _rotate(x, ang):
     return out.to(x.dtype)
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+def apply_rope(x, positions, theta: float = 10000.0, scaling=None):
+    """x: (..., S, H, D); positions: broadcastable to (..., S); ``scaling``
+    a YaRN ``configs.RopeScaling`` or None."""
     d = x.shape[-1]
-    freqs = _device_frequencies(d, theta, x.device)
+    freqs = _device_frequencies(d, theta, x.device, scaling)
     ang = positions[..., :, None, None].float() * freqs      # (..., S, 1, d/2)
     return _rotate(x, ang)
 

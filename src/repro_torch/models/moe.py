@@ -6,7 +6,18 @@ of the (token, choice) pairs by expert id, a capacity-bucketed scatter into
 (E, C, D), dense per-expert products, and the weighted rows summed back
 into their tokens in a fixed order (``_combine``). Pairs past an expert's
 capacity are dropped; which ones depends on the sort order, so the sort is
-stable, as ``jnp.argsort`` is.
+stable, as ``jnp.argsort`` is. With ``capacity_factor`` 0 the route is
+dropless (DeepSeek-V2 drops tokens only in training): the experts' counts
+are read back to the host once a layer, the batched products run in
+buckets of a depth chosen from them, and the pairs of the few experts
+that have more run expert by expert (``_dropless_expert_compute``); or,
+where the tokens are few (a decode batch) or a CUDA graph is being
+captured, every bucket is as deep as the tokens, so nothing is read back
+(``_dropless_sizes``). With ``norm_topk_prob`` false the pairs are
+weighted by their raw router probabilities. Inside a profiler's trace the
+route (scores, top-k, sort, the read of the counts) is the span
+``model.route`` and the experts' products with the combine
+``model.experts``.
 
 Under a token block (the train step's, ``sharding.use_dp_block``) x is
 this rank's block of the global batch's rows and, on a sequence block, of
@@ -39,8 +50,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
+
+# A dropless route buckets every expert as deep as the tokens, reading
+# nothing back, where there are at most this many: below it the batched
+# products read each expert's weights once at any depth (a decode batch).
+STATIC_DEPTH = 128
+# An expert computed on its own costs six launches, taken here as the
+# time of this many rows of the batched products (``_dropless_depth``).
+LOOP_ROWS = 1024
 
 
 def init_moe(generator, cfg, n_layers: int, *, dtype=torch.bfloat16,
@@ -77,15 +97,29 @@ def _counts(idx, n: int):
 
 def _top_k(x2d, router_w, m):
     """x2d: (..., T, D) -> the router's scores (..., T, E) and the top-k
-    choices' weights, renormalised, and ids, each (..., T, k)."""
+    choices' weights, renormalised unless ``norm_topk_prob`` is false, and
+    ids, each (..., T, k)."""
     logits = x2d.float() @ router_w.float()                    # (T, E)
     if m.router_act == "sigmoid":
         scores = torch.sigmoid(logits)
     else:
         scores = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(scores, m.top_k, dim=-1)         # descending
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if m.norm_topk_prob:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return scores, top_w, top_i
+
+
+def _dropless_sizes(counts, t: int):
+    """A dropless route's pairs an expert, ``counts`` read back to the
+    host, for ``_dropless_expert_compute``; None where the route instead
+    buckets every expert as deep as the ``t`` tokens (an expert gets at
+    most one pair a token) and reads nothing back: t <= ``STATIC_DEPTH``,
+    the counts are shapes only, or a CUDA graph is being captured."""
+    if t <= STATIC_DEPTH or counts.is_meta or (
+            counts.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return None
+    return counts.tolist()
 
 
 def _balance_aux(probs_mean, counts, m):
@@ -129,6 +163,37 @@ def _bucketed_expert_compute(xs, seg, pos_in_seg, num_experts, capacity,
     return y[seg, slot] * keep[:, None].to(y.dtype)            # (N, D)
 
 
+def _dropless_depth(sizes) -> int:
+    """The bucket depth d of a dropless route, from each expert's count
+    ``sizes``: 0 or a count, whichever least costs E x d padded rows of the
+    batched products plus, for each expert with more than d pairs, its
+    pairs past d and ``LOOP_ROWS``. Skewed counts (a few hot experts) give
+    a depth well below the largest, even routing the largest."""
+    def cost(d):
+        return len(sizes) * d + sum(n - d + LOOP_ROWS for n in sizes if n > d)
+    return min([0, *sizes], key=cost)
+
+
+def _dropless_expert_compute(xs, seg, pos_in_seg, sizes, wi, wg, wo, act):
+    """xs: (N, D) pairs sorted by expert, ``seg``/``pos_in_seg`` as for
+    ``_bucketed_expert_compute``, ``sizes`` each expert's count (host
+    ints). The first d pairs of every expert in buckets of depth d
+    (``_dropless_depth``), the rest of each expert's pairs over its own
+    rows: no pair is dropped. Returns (N, D) in the same order."""
+    depth = _dropless_depth(sizes)
+    ys = (_bucketed_expert_compute(xs, seg, pos_in_seg, len(sizes), depth,
+                                   wi, wg, wo, act) if depth
+          else torch.zeros_like(xs))
+    start = 0
+    for e, n in enumerate(sizes):
+        if n > depth:
+            rows = slice(start + depth, start + n)
+            x = xs[rows]
+            ys[rows] = (L.act_fn(act)(x @ wg[e]) * (x @ wi[e])) @ wo[e]
+        start += n
+    return ys
+
+
 def _place(counts, every, block, rows: int):
     """The number of pairs of each expert before each of this block's rows
     in global (row, position) order, less those of the block's own
@@ -157,44 +222,57 @@ def _moe_tokens(x2d, p, cfg, block=None, rows: int = 1):
     m = cfg.moe
     t, d = x2d.shape
     k = m.top_k
-    if block is None:
-        top_w, top_i, aux = _route(x2d, p["router"], m)
-    else:
-        scores, top_w, top_i = _top_k(x2d, p["router"], m)
-    flat_e = top_i.reshape(-1)                                 # (T*k,)
-    counts = _counts(flat_e, m.num_experts)
-    t_all = t
-    if block is not None:
-        # frac from the global counts (they carry no gradient), probs_mean
-        # this block's score sum over the global token count: the shares
-        # and their gradients sum over the blocks to the global aux's
-        by_row = _counts(top_i.reshape(rows, -1), m.num_experts)
-        every = block.gather(by_row)
-        t_all = t * block.n_blocks
-        aux = _balance_aux(scores.sum(0) / t_all, every.sum((0, 1)), m)
-    capacity = max(int(np.ceil(t_all * k / m.num_experts
-                               * m.capacity_factor)), 4)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    tok_idx = sort_idx // k
-    seg = flat_e[sort_idx]
-    xs = x2d[tok_idx]                                          # (T*k, D)
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
-    if block is not None:
-        # kept: the pair's global place is within the capacity; bucketed
-        # at its place here (the kept pairs of an expert are the first of
-        # its pairs here), in buckets as deep as this rank's most kept
-        # pairs of one expert
-        base = _place(by_row, every, block, rows)
-        keep = pos_in_seg + base[tok_idx // (t // rows), seg] < capacity
-        pos_in_seg = torch.where(keep, pos_in_seg, t * k)
-        kept = torch.zeros_like(counts).index_add_(0, seg, keep.long())
-        capacity = max(int(kept.max()), 1)
-    ys = _bucketed_expert_compute(xs, seg, pos_in_seg, m.num_experts,
-                                  capacity, p["wi"], p["wg"], p["wo"],
-                                  cfg.act)
-    w_sorted = top_w.reshape(-1)[sort_idx].to(ys.dtype)        # (T*k,)
-    out = _combine(ys * w_sorted[:, None], sort_idx, k)
+    with spans.span(spans.ROUTE):
+        if block is None:
+            top_w, top_i, aux = _route(x2d, p["router"], m)
+        else:
+            scores, top_w, top_i = _top_k(x2d, p["router"], m)
+        flat_e = top_i.reshape(-1)                             # (T*k,)
+        counts = _counts(flat_e, m.num_experts)
+        t_all = t
+        if block is not None:
+            # frac from the global counts (they carry no gradient),
+            # probs_mean this block's score sum over the global token
+            # count: the shares and their gradients sum over the blocks
+            # to the global aux's
+            by_row = _counts(top_i.reshape(rows, -1), m.num_experts)
+            every = block.gather(by_row)
+            t_all = t * block.n_blocks
+            aux = _balance_aux(scores.sum(0) / t_all, every.sum((0, 1)), m)
+        sizes = None
+        if m.capacity_factor > 0:
+            capacity = max(int(np.ceil(t_all * k / m.num_experts
+                                       * m.capacity_factor)), 4)
+        elif block is not None:
+            capacity = t_all           # no global place is past it
+        else:
+            capacity, sizes = t, _dropless_sizes(counts, t)
+        sort_idx = torch.argsort(flat_e, stable=True)
+        tok_idx = sort_idx // k
+        seg = flat_e[sort_idx]
+        starts = torch.cumsum(counts, 0) - counts
+        pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
+        if block is not None:
+            # kept: the pair's global place is within the capacity;
+            # bucketed at its place here (the kept pairs of an expert are
+            # the first of its pairs here), in buckets as deep as this
+            # rank's most kept pairs of one expert
+            base = _place(by_row, every, block, rows)
+            keep = pos_in_seg + base[tok_idx // (t // rows), seg] < capacity
+            pos_in_seg = torch.where(keep, pos_in_seg, t * k)
+            kept = torch.zeros_like(counts).index_add_(0, seg, keep.long())
+            capacity = max(int(kept.max()), 1)
+    with spans.span(spans.EXPERTS):
+        xs = x2d[tok_idx]                                      # (T*k, D)
+        if sizes is not None:
+            ys = _dropless_expert_compute(xs, seg, pos_in_seg, sizes,
+                                          p["wi"], p["wg"], p["wo"], cfg.act)
+        else:
+            ys = _bucketed_expert_compute(xs, seg, pos_in_seg,
+                                          m.num_experts, capacity, p["wi"],
+                                          p["wg"], p["wo"], cfg.act)
+        w_sorted = top_w.reshape(-1)[sort_idx].to(ys.dtype)    # (T*k,)
+        out = _combine(ys * w_sorted[:, None], sort_idx, k)
     return out.to(x2d.dtype), aux
 
 
@@ -326,6 +404,10 @@ def _ep_shards(x, p, cfg, *, n_sh: int, shard_id, exchange):
     ``exchange``: the all-to-all of an (R, n_sh, ...) buffer. Returns
     (out (R, T, D), aux (R,))."""
     m = cfg.moe
+    if m.capacity_factor <= 0:
+        raise ValueError("expert parallelism buckets by a capacity; the "
+                         "dropless route (capacity_factor 0) runs on one "
+                         "device (moe_ffn)")
     e_local = m.num_experts // n_sh
     r_, t, d = x.shape
     k = m.top_k

@@ -11,7 +11,8 @@ span holds everything a drain did.
 The names are this module's constants, one place for each: the serving
 loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase, ``REPLAY``
 around a captured step's graph replay) and the model's (``EMBED`` ...
-``HEAD``). ``NAMES`` is every one of them.
+``HEAD``, and inside a MoE FFN ``ROUTE`` and ``EXPERTS``). ``NAMES`` is
+every one of them.
 """
 from __future__ import annotations
 
@@ -32,8 +33,10 @@ VIEWS = "model.views"
 MIXER = "model.mixer"
 FFN = "model.ffn"
 HEAD = "model.head"
+ROUTE = "model.route"
+EXPERTS = "model.experts"
 NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, REPLAY, *STEP.values(),
-                   EMBED, VIEWS, MIXER, FFN, HEAD})
+                   EMBED, VIEWS, MIXER, FFN, HEAD, ROUTE, EXPERTS})
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled

@@ -120,9 +120,11 @@ def test_stablelm_head_dims_run_their_own_instances(cuda):
         assert f"flash_fwd_kernel<float, {d}>" in names, names
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
+                                  "deepseek-v2-lite"])
 def test_reduced_deepseek_forward_matches_the_cpu(cuda, arch):
-    """Reduced DeepSeek (MLA at q.k dim 48, MoE with capacity drops) in f32
+    """Reduced DeepSeek (MLA at q.k dim 48, MoE with capacity drops, or
+    V2-Lite's direct query, YaRN and dropless routing) in f32
     on the card against the same weights' forward on the CPU (every op's
     plain version there): K3 once a layer, logits and aux within 1e-3
     (f32 on both; sums in another order)."""
