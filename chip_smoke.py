@@ -8,9 +8,9 @@ version, drives the port's main paths, and prints what it measured.
 Phases, each asserting (a failure exits non-zero and prints no result):
   1. device check, ``nvidia-smi`` name, power limit and maximum SM clock,
      the card's SM count beside the H100 model's, parallel nvcc build of
-     all six kernels (the five TPU kernels' ports and D1, decode
-     attention) with each instance's registers and spills (K3's instances
-     must spill nothing);
+     all seven kernels (the five TPU kernels' ports, D1, decode attention,
+     and D2, MLA's latent decode attention) with each instance's registers
+     and spills (K3's instances must spill nothing);
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
      library times (CUDA events) and the bound from the card's peak rates
@@ -32,7 +32,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      device time; 2e: K5 rg_lru, f32 and bf16, from zero and from h0, on
      ragged shapes and over several windows, two calls chained through h0
      against one, its clusters' occupancy, and the bytes it moves beside
-     its bound);
+     its bound; 2h: D1 at the decode shapes; 2i: D2 at dsv2lite-mixed's
+     decode shape, the reduced widths, 128 heads, a row block at an offset
+     and an empty one, timed at the first beside its bound);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -60,8 +62,8 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      deepseek-v3-671b at full width cut to 4 layers (a prefill tenant),
      served on the H100 model, one arch's weights at a time, with the v5e
      model's decisions beside the H100 one's; K3 launched once a layer per
-     prefill run at D = 192, D1 never (the absorbed MLA decode attends in
-     its latent space);
+     prefill run at D = 192, D1 never and D2 once a layer per decode run
+     (the absorbed MLA decode attends in its latent space);
   3e. Qwen2-VL and Whisper, counted the same way: full-width, uncut
      qwen2-vl-7b (M-RoPE, 256 patch embeddings replacing the prompt's
      prefix; a prefill and a decode tenant) and whisper-small (encoder over
@@ -143,8 +145,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      decode steps of 8 rows over an 8 x 4096 cache holding that prompt;
      every logit and cache leaf ``torch.equal`` across the two, K3, K4 or
      K5 once a layer of its kind a prefill and never at decode, D1 exactly
-     once an attn or local layer a decode step and no other kernel there
-     (none for DeepSeek-V2's absorbed decode), the step
+     once an attn or local layer a decode step (none for DeepSeek-V2's
+     absorbed decode, which runs D2 once a layer) and no other kernel
+     there, the step
      times side by side, and the per-rank cache bytes of a (1, 4)
      ``ShapeMesh`` (``shard_bytes`` of ``cache_shardings``) beside the
      whole cache's;
@@ -156,6 +159,7 @@ with the model (H100 or v5e); every time printed here is the card's own.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -541,6 +545,14 @@ def decode_attn_layers(cfg) -> int:
     return n
 
 
+def mla_decode_layers(cfg) -> int:
+    """D2 launches a decode step of ``cfg``: one an MLA layer whose decode
+    attends in the latent space."""
+    if cfg.mla is None or cfg.mla_decode != "absorbed":
+        return 0
+    return cfg.layer_kinds().count("attn")
+
+
 def rel_errs(got, want):
     """(||got - want|| / ||want|| over the whole tensor, the same ratio at
     its worst last-axis row)."""
@@ -754,6 +766,26 @@ D1_COMBINE = "decode_combine_kernel"
 # caches fed the einsums (PERF.md section 5; NVIDIA H100 80GB HBM3,
 # 700.00 W): phi3-mini 8 x 4096 and whisper-small 32 x 448
 EARLIER_DECODE_MS = {"phi3-mini-3.8b": 74.4, "whisper-small": 14.229}
+# D2 (mla_decode_attention) at (label, (B, H, S, R, DR), hi, offset): rows
+# whose position offset + row lies below hi are read; the rows after them
+# hold N(0, 64^2), so a read past hi shows. The first is dsv2lite-mixed's
+# decode (48 x 8193 rows of a 16,384-row latent cache), then the reduced
+# widths (and R 32 / DR 8, whose (R + DR) / 8 chunks are odd), 128 heads
+# (DeepSeek-V2-236B, V3: 8 head tiles), a row block at an offset, and a
+# block with no row in it
+MLA_DECODE_SHAPES = (
+    ("dsv2lite", (48, 16, 16384, 512, 64), 8193, 0),
+    ("reduced", (2, 4, 64, 32, 16), 40, 0),
+    ("r32_dr8", (2, 4, 64, 32, 8), 40, 0),
+    ("h128", (2, 128, 1024, 512, 64), 700, 0),
+    ("offset", (4, 16, 2048, 512, 64), 3000, 1536),
+    ("empty", (2, 16, 256, 512, 64), 100, 256))
+D2_KERNEL = "mla_decode_kernel"
+D2_COMBINE = "mla_combine_kernel"
+# the absorbed decode of one dsv2lite-mixed layer before D2: the f32 copy of
+# the latents and two f32 einsums, ~1.87 ms (PERF.md section 5; NVIDIA H100
+# 80GB HBM3, 700.00 W)
+EARLIER_MLA_DECODE_MS = 1.87
 # a bf16 gradient against autograd through an independent f32 plain
 # version (the full S x S attention, the sequential recurrences): 5e-2 of
 # max(1, the gradient's largest entry), i.e. 5e-2 abs on unit-scale
@@ -1267,6 +1299,122 @@ def decode_phase(torch, ops, ref, randn, rows) -> None:
                 f"profiler, a launch: {D1_KERNEL} {by[D1_KERNEL]:.4f} ms + "
                 f"{D1_COMBINE} {by[D1_COMBINE]:.4f} ms")
         del q, k, v, q0, k0, v0
+    torch.cuda.empty_cache()
+
+
+def mla_decode_work(b: int, h: int, rows: int, r: int, dr: int,
+                    elt: int = 2):
+    """D2's (FLOPs, bytes) over ``rows`` valid latent rows: the scores'
+    2 (R + DR) and the output's 2 R FLOPs a (head, row); each ckv and krope
+    row read once (q and the f32 partials, under 1% at the cell's shape,
+    left out)."""
+    return 2.0 * b * h * rows * (2 * r + dr), b * rows * (r + dr) * elt
+
+
+def mla_decode_phase(torch, ops, ref, randn, rows) -> None:
+    """Phase 2i: D2 against its plain version at each ``MLA_DECODE_SHAPES``
+    shape, the latents bf16 ~ N(0, 1.5^2) below hi and N(0, 64^2) after:
+    o / l within ``BF16_TOL``, m within ``DECODE_F32_TOL``, l within 5e-4
+    relative, and a block with no row exactly (NEG_INF, 0, 0). At the
+    dsv2lite-mixed shape: the kernel's time (CUDA events over 20 calls
+    queued behind a spin) beside the bytes' bound at 3.35 TB/s and the
+    plain version's time, the split counts side by side, the memory above
+    what the cache holds (less than one f32 copy of it) and the profiler's
+    times of the split and merge kernels. No one PyTorch call computes the
+    latent form: no library time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as MLA
+    card = nvidia_smi("name,power.limit")
+    dev = torch.device("cuda")
+    ds = get_config("deepseek-v2-lite")
+    scale = ds.rope_scaling.softmax_gain / math.sqrt(
+        ds.mla.qk_nope_dim + ds.mla.qk_rope_dim)
+
+    def latents(b, s, width, valid):
+        x = randn((b, s, width), torch.float32) * 1.5
+        x[:, valid:] *= 64.0 / 1.5
+        return x.bfloat16()
+
+    row = rows["mla_decode"] = dict(
+        source="src/repro_torch/csrc/mla_decode.cu",
+        replaces="src/repro/models/attention.py:332", library_ms=None)
+    for label, (b, h, s, r, dr), hi, offset in MLA_DECODE_SHAPES:
+        r0, r1 = ref.decode_rows(0, hi, offset, s, False)
+        q_lat = randn((b, h, r), torch.bfloat16)
+        q_rope = randn((b, h, dr), torch.bfloat16)
+        ckv, krope = latents(b, s, r, r1), latents(b, s, dr, r1)
+        kw = dict(hi=hi, offset=offset, scale=scale)
+        got = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, **kw)
+        want = MLA.plain(q_lat, q_rope, ckv, krope, lo=0, **kw)
+        torch.cuda.synchronize()
+        if r1 == r0:
+            for x, w0 in zip(got, (ref.NEG_INF, 0.0, 0.0)):
+                assert bool((x == w0).all()), label
+            errs = (0.0, 0.0, 0.0)
+        else:
+            errs = (max_err(torch, got[2] / got[1][..., None],
+                            want[2] / want[1][..., None], BF16_TOL),
+                    max_err(torch, got[0], want[0], DECODE_F32_TOL),
+                    max_err(torch, got[1] / want[1],
+                            torch.ones_like(want[1]), DECODE_F32_TOL))
+        del got, want
+        tiles = -(-(r1 - r0) // MLA.TILE_ROWS)
+        ns = MLA.split_count(b * -(-h // MLA.HEAD_TILE), tiles,
+                             MLA._slots(0, r, dr))
+        log(f"[2i mla_decode {label}] q ({b}, {h}, {r} + {dr}) over ({b}, "
+            f"{s}) latent rows, positions below {hi} from offset {offset}: "
+            f"{r1 - r0} valid rows, {ns} splits; o / l err {errs[0]:.3e}, m "
+            f"{errs[1]:.3e}, l relative {errs[2]:.3e} (tol bf16 2e-2, m and "
+            f"l 5e-4); {card}")
+        if label != "dsv2lite":
+            row[f"mla_{label}_max_abs_err"] = errs[0]
+            del q_lat, q_rope, ckv, krope
+            continue
+        flops, nbytes = mla_decode_work(b, h, r1 - r0, r, dr)
+        b_ms, b_by = bound(flops, nbytes, "bfloat16")
+        ms = queued_ms(torch, lambda: ops.mla_decode_attention(
+            q_lat, q_rope, ckv, krope, **kw), 20)
+        plain = time_ms(torch, lambda: MLA.plain(q_lat, q_rope, ckv, krope,
+                                                 lo=0, **kw), 3)
+        sweep = []
+        for n in sorted({ns, 6, 11, 22, 44, 66}):
+            sweep.append((n, queued_ms(torch, lambda: ops.mla_decode_attention(
+                q_lat, q_rope, ckv, krope, n_splits=n, **kw), 20)))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        extra = {}
+        for tag, fn in (("kernel", ops.mla_decode_attention),
+                        ("plain", functools.partial(MLA.plain, lo=0))):
+            torch.cuda.reset_peak_memory_stats()
+            fn(q_lat, q_rope, ckv, krope, **kw)
+            torch.cuda.synchronize()
+            extra[tag] = torch.cuda.max_memory_allocated() - base
+        assert extra["kernel"] < ckv.numel() * 4, extra     # no f32 copy
+        evs = kernel_events(torch, lambda: [ops.mla_decode_attention(
+            q_lat, q_rope, ckv, krope, **kw) for _ in range(5)],
+            names_all(D2_KERNEL, D2_COMBINE))
+        by = {}
+        for sym in (D2_KERNEL, D2_COMBINE):
+            mine = [e for e in evs if sym in e.key]
+            assert mine, (sym, [e.key for e in evs])
+            by[sym] = (sum(e.self_device_time_total for e in mine) / 1e3
+                       / sum(e.count for e in mine))
+        row.update(max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, splits=ns, kernel_only_ms=by[D2_KERNEL],
+                   combine_ms=by[D2_COMBINE],
+                   extra_mib=extra["kernel"] / 2**20,
+                   plain_extra_mib=extra["plain"] / 2**20)
+        log(f"[2i mla_decode {label} time] kernel {ms:.4f} ms (queued; "
+            f"profiler {D2_KERNEL} {by[D2_KERNEL]:.4f} ms + {D2_COMBINE} "
+            f"{by[D2_COMBINE]:.4f} ms), bound {b_ms:.4f} ms ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB), {b_ms / ms:.1%} of it; plain "
+            f"{plain:.4f} ms (the path before D2 ~{EARLIER_MLA_DECODE_MS} ms "
+            f"a layer); splits " + ", ".join(f"{n}: {t:.4f} ms" for n, t in
+                                            sweep)
+            + f" (queued); above the {base / 2**30:.3f} GiB held: kernel "
+            f"{extra['kernel'] / 2**20:.2f} MiB, plain "
+            f"{extra['plain'] / 2**20:.2f} MiB; {card}")
+        del q_lat, q_rope, ckv, krope
     torch.cuda.empty_cache()
 
 
@@ -2036,6 +2184,7 @@ def serving_mesh_phase(torch, dev, card) -> dict:
                 full, num_layers=depth)
             n_kernel = cfg.layer_kinds().count(kind)
             n_dec = decode_attn_layers(cfg)
+            n_mla = mla_decode_layers(cfg)
             params = T.init_params(cfg, torch.Generator(
                 device=dev).manual_seed(0), device=dev)
             gen = torch.Generator(device=dev).manual_seed(8)
@@ -2081,7 +2230,9 @@ def serving_mesh_phase(torch, dev, card) -> dict:
                     pre_launches.values()) == n_kernel, (arch, pre_launches)
                 assert dec_launches == {**dict.fromkeys(_build.NAMES, 0),
                                         "decode_attention":
-                                        n_dec * SERVE_STEPS}, \
+                                        n_dec * SERVE_STEPS,
+                                        "mla_decode":
+                                        n_mla * SERVE_STEPS}, \
                     (arch, dec_launches)
                 for name in _build.NAMES:
                     total[name] += pre_launches[name] + dec_launches[name]
@@ -2858,6 +3009,9 @@ def main() -> int:
     # ---- phase 2h: D1 decode_attention at the decode shapes ---------------
     decode_phase(torch, ops, ref, randn, rows)
 
+    # ---- phase 2i: D2 mla_decode_attention at the latent decode shapes ----
+    mla_decode_phase(torch, ops, ref, randn, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -3143,9 +3297,13 @@ def main() -> int:
         runs = prefill_runs(res["rounds"], arch_jobs[0].name)
         flash = ops.LAUNCHES["flash_attention"]
         assert flash == cfg.num_layers * runs, (arch, flash, runs)
-        # MLA's absorbed decode attends in its latent space, without D1
+        # MLA's absorbed decode attends in its latent space: D2 once a
+        # layer a decode run, D1 never
         assert decode_attn_layers(cfg) == 0, arch
         assert ops.LAUNCHES["decode_attention"] == 0, (arch, ops.LAUNCHES)
+        d2 = sum(mla_decode_layers(cfg) * prefill_runs(res["rounds"], j.name)
+                 for j in arch_jobs if j.phase == "decode")
+        assert ops.LAUNCHES["mla_decode"] == d2, (arch, ops.LAUNCHES, d2)
         logits = {name: srv._exec[name]() for name in srv.jobs}
         torch.cuda.synchronize()
         for job in arch_jobs:
@@ -3414,7 +3572,7 @@ def main() -> int:
                         **{k: v for k, v in row.items()
                            if k.startswith(("d80_", "d160_", "d192_", "d128_",
                                             "d64_", "d48_", "train_",
-                                            "shard_", "dec_"))}})
+                                            "shard_", "dec_", "mla_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

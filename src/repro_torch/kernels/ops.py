@@ -2,10 +2,11 @@
 ``repro/kernels/ops.py``.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
-raises (K3, K4 and K5 take strided slices, copied whole first; D1 reads a
-cache in place through its strides, never a copy); a CPU tensor goes to
-the plain version: ``ref`` for K1-K3 and D1, and for K4 and K5 the
-model's own chunked and scanned forms in ``repro_torch.models.recurrent``.
+raises (K3, K4 and K5 take strided slices, copied whole first; D1 and D2
+read a cache in place through its strides, never a copy); a CPU tensor
+goes to the plain version: ``ref`` for K1-K3 and D1, ``mla_decode.plain``
+for D2, and for K4 and K5 the model's own chunked and scanned forms in
+``repro_torch.models.recurrent``.
 A meta tensor (the dry run's, shapes and no data) goes to the plain
 version too: no kernel can run on it. Nothing else selects the path: there
 is no counterpart of ``REPRO_PALLAS_INTERPRET``.
@@ -19,6 +20,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import coschedule as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import rg_lru as _lru
 from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import sliced_matmul as _sm
@@ -114,3 +116,22 @@ def decode_attention(q, k_cache, v_cache, *, lo=None, hi: int,
                                     n_splits=n_splits or 1)
     return _da.decode_attention(q, k_cache, v_cache, lo=lo, hi=hi,
                                 offset=offset, pos=pos, n_splits=n_splits)
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, krope, *, lo=None, hi: int,
+                         offset: int = 0, scale: float, n_splits: int = None):
+    """MLA's absorbed attention partials for one query token over the
+    latent cache: q_lat (B, H, R), q_rope (B, H, DR) against ckv (B, S, R)
+    and krope (B, S, DR) -> f32 (m (B, H), l (B, H), o (B, H, R)) over the
+    rows whose position ``offset`` + row lies in [max(lo, 0), hi), logits
+    scaled by ``scale`` (``mla_decode.plain``). Not a kernel of the
+    reference, whose absorbed decode is plain XLA. ``n_splits`` None: on
+    the card the count that fills it (``mla_decode.split_count``)."""
+    _mla.check_shapes(q_lat, q_rope, ckv, krope)
+    lo = 0 if lo is None else lo
+    if _on_cpu(q_lat):
+        return _mla.plain(q_lat, q_rope, ckv, krope, lo=lo, hi=hi,
+                          offset=offset, scale=scale)
+    return _mla.mla_decode_attention(q_lat, q_rope, ckv, krope, lo=lo,
+                                     hi=hi, offset=offset, scale=scale,
+                                     n_splits=n_splits)

@@ -14,7 +14,9 @@ functions for the tests, and the sliding-window ``local`` blocks of
 ``ops.decode_attention`` (the split-K kernel D1 on the card, which reads
 the bf16 cache in place), as do the ring cache of the ``local`` blocks
 and Whisper's cross-attention decode; MLA's default decode
-(``mla_decode="absorbed"``) attends in the latent space with einsums.
+(``mla_decode="absorbed"``) attends in the latent space through
+``ops.mla_decode_attention`` (the kernel D2 on the card, which reads the
+bf16 latents in place).
 Whisper's encoder (non-causal, no cache) takes K3's full path; its
 decoder's cross-attention over the encoder's output (no cache) runs the
 plain ``full_attention``, as the reference's does. A window inside an
@@ -203,22 +205,6 @@ def split_k_combine(m, l, o, group):
     both = torch.cat([(l * a)[..., None], o * a[..., None]], dim=-1)
     dist.all_reduce(both, group=group)
     return both[..., 1:] / both[..., :1]
-
-
-def _attend(logits, valid, apply_v, group=None):
-    """softmax(``logits`` masked by ``valid``, None: none masked) over the
-    last dim, applied to the values by ``apply_v``. With ``group`` this
-    rank holds one block of the keys (a cache's S rows over ``model``):
-    its partial softmax goes through ``split_k_combine``."""
-    if valid is not None:
-        logits = torch.where(valid, logits, NEG_INF)
-    if group is None:
-        return apply_v(torch.softmax(logits, dim=-1))
-    m = logits.amax(dim=-1)
-    p = torch.exp(logits - m[..., None])
-    if valid is not None:
-        p = torch.where(valid, p, 0.0)
-    return split_k_combine(m, p.sum(dim=-1), apply_v(p), group)
 
 
 def decode_attention(q, k_cache, v_cache, t, *, window: int = 0,
@@ -559,12 +545,9 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
             c_kv = c_kv.to(cache["ckv"].dtype)
             k_rope = k_rope.to(cache["krope"].dtype)
         if s == 1 and cfg.mla_decode == "absorbed":
-            valid = None if group is None else (
-                offset + torch.arange(c_kv.shape[1], device=x.device)
-                < t + 1)
             o = _mla_absorbed_decode(q_nope, q_rope, c_kv, k_rope,
-                                     p["wkv_b"], dn, x.dtype, valid, group,
-                                     gain)
+                                     p["wkv_b"], dn, x.dtype, t + 1, offset,
+                                     group, gain)
             return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
     # expand k/v from the latents
@@ -586,23 +569,27 @@ def mla_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None):
 
 
 def _mla_absorbed_decode(q_nope, q_rope, ckv, krope, wkv_b, dn, dtype,
-                         valid=None, group=None, gain: float = 1.0):
+                         hi: int, offset: int = 0, group=None,
+                         gain: float = 1.0):
     """One token's attention in the latent space: the score is
     (q_nope W_k^T) . c_kv + q_rope . k_rope, and the output
-    (p . c_kv) W_v, so K/V are never expanded over the cache. ``valid``
-    (T,) masks the cache's rows; with ``group`` the rows are this rank's
-    block and the latent output is combined over the ranks
+    (p . c_kv) W_v, so K/V are never expanded over the cache. The rows
+    whose position (``offset`` + row) lies below ``hi`` are read by
+    ``ops.mla_decode_attention`` (the kernel D2 on the card, from the bf16
+    latents in place; no f32 copy of them); with ``group`` the rows are
+    this rank's block and the latent output is combined over the ranks
     (``split_k_combine``). ``gain`` multiplies the softmax scale."""
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]     # (r,H,dn), (r,H,dv)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_k)      # (B,1,H,r)
     scale = gain / np.sqrt(dn + q_rope.shape[-1])
-    ckv_f = ckv.float()
-    logits = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_f)
-              + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                             krope.float())) * scale          # (B,H,1,T)
-    o_lat = _attend(logits, valid, lambda pr: torch.einsum(
-        "bhst,btr->bhsr", pr, ckv_f), group).transpose(1, 2)
-    return torch.einsum("bshr,rhv->bshv", o_lat.to(dtype), w_v)
+    m, l_sum, o_lat = ops.mla_decode_attention(
+        q_abs[:, 0], q_rope[:, 0], ckv, krope, hi=hi, offset=offset,
+        scale=float(scale))
+    if group is not None:
+        o_lat = split_k_combine(m, l_sum, o_lat, group)
+    else:
+        o_lat = o_lat / l_sum[..., None]
+    return torch.einsum("bhr,rhv->bhv", o_lat.to(dtype), w_v)[:, None]
 
 
 def _pad_v(v, qk_dim: int):

@@ -16,6 +16,7 @@ from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mla_decode as MLA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rg_lru as LRU
 from repro_torch.kernels import sliced_matmul as SM
@@ -967,3 +968,86 @@ def test_decode_step_allocates_no_f32_cache_copy(cuda):
     assert ops.LAUNCHES["decode_attention"] == 1
     assert sum(ops.LAUNCHES.values()) == 1
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# D2's cases: ((B, H, S, R, DR), hi, offset): dsv2lite-mixed's decode (8193
+# of a 16,384-row latent cache), the reduced widths (DR 8: the krope box
+# mostly zeros), 128 heads (DeepSeek-V2-236B, V3: 8 head tiles), a row
+# block at an offset, and a block holding no valid row
+MLA_CASES = {"dsv2lite": ((48, 16, 16384, 512, 64), 8193, 0),
+             "reduced": ((2, 4, 64, 32, 16), 40, 0),
+             "reduced_dr8": ((2, 4, 64, 32, 8), 40, 0),
+             "h128": ((2, 128, 1024, 512, 64), 700, 0),
+             "offset": ((4, 16, 2048, 512, 64), 3000, 1536),
+             "empty": ((2, 16, 256, 512, 64), 100, 256)}
+
+
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_decode_matches_plain(cuda, case):
+    """D2 against ``mla_decode.plain`` (f32 over the same bf16 latents),
+    the latents ~ N(0, 1.5^2) below hi and N(0, 64^2) after it, so a read
+    past hi shows: o / l within bf16's tolerance, m within 5e-4, l within
+    5e-4 relative, one launch; no valid row gives exactly (NEG_INF, 0,
+    0)."""
+    (b, h, s, r, dr), hi, offset = MLA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    r0, r1 = ref.decode_rows(0, hi, offset, s, False)
+
+    def latents(width):
+        x = torch.randn(b, s, width, generator=gen, device=cuda) * 1.5
+        x[:, r1:] *= 64.0 / 1.5
+        return x.bfloat16()
+
+    q_lat = torch.randn(b, h, r, generator=gen, device=cuda).bfloat16()
+    q_rope = torch.randn(b, h, dr, generator=gen, device=cuda).bfloat16()
+    ckv, krope = latents(r), latents(dr)
+    kw = dict(hi=hi, offset=offset, scale=0.11)
+    ops.reset_launches()
+    got = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mla_decode"] == 1
+    want = MLA.plain(q_lat, q_rope, ckv, krope, lo=0, **kw)
+    if r1 == r0:
+        assert bool((got[0] == ref.NEG_INF).all())
+        assert not got[1].any() and not got[2].any()
+        return
+    torch.testing.assert_close(got[2] / got[1][..., None],
+                               want[2] / want[1][..., None],
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(got[0], want[0], atol=5e-4, rtol=0.0)
+    torch.testing.assert_close(got[1], want[1], atol=0.0, rtol=5e-4)
+
+
+def test_mla_decode_step_allocates_no_f32_latent_copy(cuda):
+    """A one-layer decode step of full-width DeepSeek-V2-Lite over 8 x
+    4096 bf16 latent caches at t = 2049: D2 once, D1 never, no f32 product
+    on the CUDA cores (the eager einsums' ``*gemm_f32f32*``), and the
+    step's peak memory above what it held before less than the layer's ckv
+    cache (the einsums allocated an f32 copy of it, twice its size)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), num_layers=1)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    caches = T.init_decode_caches(cfg, 8, 4096, device=cuda)
+    tok = torch.zeros(8, dtype=torch.long, device=cuda)
+    T.decode_step(params, cfg, caches, tok, 2048)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logits, _ = T.decode_step(params, cfg, caches, tok, 2049)
+    torch.cuda.synchronize()
+    layer = 8 * 4096 * cfg.mla.kv_lora_rank * 2
+    assert torch.cuda.max_memory_allocated() - base < layer
+    assert ops.LAUNCHES["mla_decode"] == 1
+    assert ops.LAUNCHES["decode_attention"] == 0
+    assert bool(torch.isfinite(logits.float()).all())
+    for _ in range(5):      # the profiler has come back empty on the card
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            T.decode_step(params, cfg, caches, tok, 2049)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        if any("mla_decode_kernel" in n for n in names):
+            break
+    assert any("mla_decode_kernel" in n for n in names), names
+    assert not any("gemm_f32f32" in n for n in names), names

@@ -10,6 +10,7 @@ The cases marked ``cuda`` skip where there is no CUDA device:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_decode_graph.py
 """
+import dataclasses
 import inspect
 
 import pytest
@@ -245,3 +246,33 @@ def test_a_step_that_waits_on_the_host_stays_eager(cuda, monkeypatch):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     _assert_caches_close(caches, eager)
+
+
+@pytest.mark.cuda
+def test_a_deepseek_lite_replay_runs_d2_once_a_layer(cuda):
+    """Reduced DeepSeek-V2-Lite at its 27 layers: the step is captured, its
+    replays equal the eager step, and each launches D2 (the latent
+    attention) 27 times, once an MLA layer, and D1 never."""
+    cfg = dataclasses.replace(reduced(get_config("deepseek-v2-lite")),
+                              num_layers=27)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    srv = TS.SharedPodServer(device=cuda)
+    name = "deepseek-v2-lite-decode"
+    ops.reset_launches()
+    srv.submit(TS.Job(name, "deepseek-v2-lite", "decode", SLICES, BATCH, SEQ),
+               params=params, cfg=cfg)
+    assert srv.captures == {name: None}
+    assert ops.LAUNCHES["mla_decode"] == 27          # the warm-up
+    caches = harness.decode_caches(srv, name)
+    eager = _clone(caches)
+    tok = _token(srv, name)
+    for i in range(2):
+        got = srv._exec[name]()
+        assert ops.LAUNCHES["mla_decode"] == 27 * (2 + 2 * i)
+        want, _ = T.decode_step(params, cfg, eager, tok, T_POS)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["mla_decode"] == 27 * (3 + 2 * i)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        _assert_caches_close(caches, eager)
+    assert ops.LAUNCHES["decode_attention"] == 0

@@ -151,6 +151,10 @@ def test_cpu_path_counts_no_launches():
     ops.rg_lru(torch.zeros(1, 16, 64), torch.zeros(1, 16, 64))
     ops.decode_attention(torch.zeros(1, 2, 32), torch.zeros(1, 8, 1, 32),
                          torch.zeros(1, 8, 1, 32), hi=5)
+    ops.mla_decode_attention(torch.zeros(1, 2, 32), torch.zeros(1, 2, 16),
+                             torch.zeros(1, 8, 32), torch.zeros(1, 8, 16),
+                             hi=5, scale=0.1)
     assert ops.LAUNCHES == {"sliced_matmul": 0, "coschedule": 0,
                             "flash_attention": 0, "rwkv6_scan": 0,
-                            "rg_lru": 0, "decode_attention": 0}
+                            "rg_lru": 0, "decode_attention": 0,
+                            "mla_decode": 0}
