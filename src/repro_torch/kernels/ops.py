@@ -4,9 +4,9 @@
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises (K3, K4 and K5 take strided slices, copied whole first; D1 and D2
 read a cache in place through its strides, never a copy); a CPU tensor
-goes to the plain version: ``ref`` for K1-K3 and D1, ``mla_decode.plain``
-for D2, and for K4 and K5 the model's own chunked and scanned forms in
-``repro_torch.models.recurrent``.
+goes to the plain version: ``ref`` for K1-K5 and D1 (for K4 and K5 the
+chunked and scanned forms ``ref.rwkv6_chunked`` and ``ref.rglru_scan``),
+and ``mla_decode.plain`` for D2.
 A meta tensor (the dry run's, shapes and no data) goes to the plain
 version too: no kernel can run on it. Nothing else selects the path: there
 is no counterpart of ``REPRO_PALLAS_INTERPRET``.
@@ -73,12 +73,11 @@ def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):
     overwritten with the final one; None starts from zero."""
     _wkv.check_shapes(r, k, v, w_log, u, chunk)
     if _on_cpu(r):
-        from repro_torch.models.recurrent import rwkv6_chunked
         b, _, h, n = r.shape
         s0 = state if state is not None else torch.zeros(b, h, n, n,
                                                          device=r.device)
-        out, final = rwkv6_chunked(r, k, v, w_log, u, s0,
-                                   chunk=min(chunk, r.shape[1]))
+        out, final = ref.rwkv6_chunked(r, k, v, w_log, u, s0,
+                                       chunk=min(chunk, r.shape[1]))
         if state is not None:
             state.copy_(final)
         return out
@@ -91,10 +90,9 @@ def rg_lru(x, a_log, *, chunk: int = 128, bw: int = 512, h0=None):
     None means zeros."""
     _lru.check_shapes(x, a_log, chunk, bw)
     if _on_cpu(x):
-        from repro_torch.models.recurrent import rglru_scan
         if h0 is None:
             h0 = torch.zeros(x.shape[0], x.shape[2], device=x.device)
-        return rglru_scan(x.float(), a_log.float(), h0.float())[0]
+        return ref.rglru_scan(x.float(), a_log.float(), h0.float())[0]
     return _lru.rg_lru(*_dense(x, a_log), h0=h0 if h0 is None else
                        h0.contiguous())
 

@@ -11,7 +11,7 @@ from device memory once and h is written once: 100.7 MB at (1, 2048, 4096)
 f32, where the kernel it replaces read x and a_log twice (167.8 MB). x and
 a_log may be f32 or bf16 (widened in registers, as the TPU kernel widens
 them); h0 and h are f32. The plain version is
-``repro_torch.models.recurrent.rglru_scan``, the oracle
+``repro_torch.kernels.ref.rglru_scan``, the oracle
 ``repro_torch.kernels.ref.rg_lru``; ``repro_torch.kernels.ops.rg_lru`` picks
 between kernel and plain version by device. ``cluster_scan`` repeats the
 kernel's decomposition in plain PyTorch for the CPU tests; the wrapper never

@@ -9,7 +9,7 @@ state with no sequential dependence. The chunk's products run on the tensor
 cores with split-precision (bf16 high + low) operands, and no exponent above 0
 is ever formed. Unlike the TPU kernel it starts from a given state and writes
 the final one, so every multi-token call of the model runs on it. The plain
-version is ``repro_torch.models.recurrent.rwkv6_chunked``, the oracle
+version is ``repro_torch.kernels.ref.rwkv6_chunked``, the oracle
 ``repro_torch.kernels.ref.rwkv6``; ``repro_torch.kernels.ops.rwkv6_scan``
 picks between kernel and plain version by device. ``two_pass`` repeats the
 kernels' arithmetic in plain PyTorch for the CPU tests.

@@ -52,9 +52,6 @@ from repro_torch import spans
 from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.core.costs import cell_cost
 from repro_torch.core.engine import LaneSpec, WorkloadEngine, run_fleet
-from repro_torch.core.jobstore import (CANCELLED, FINISHED, PAUSED, QUEUED,
-                                       RUNNING, JobStoreError, StaleLease)
-from repro_torch.core.markov import MarkovModel
 from repro_torch.core.profiles import (H100, TPU_V5E, GPUSpec, KernelProfile,
                                        h100_profile_from_costs,
                                        tpu_profile_from_costs)
@@ -63,6 +60,15 @@ from repro_torch.data.synthetic import make_batch, poisson_arrivals
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.runtime.daemon import DrainLease
+
+# the scheduler's smoothing and CP margin, the drain's and every plan's
+SCHED_ARGS = {"alpha_p": 0.2, "alpha_m": 0.2, "cp_margin": 0.0}
+PLAN_POLICY = "KERNELET"
+PLAN_ROUNDS = 1500          # simulated rounds of the plans' IPC table
+PLAN_SEED = 0               # of the plans' Poisson arrivals
+MAX_ROUNDS = 10000          # a drain longer than this did not drain
+DRAIN_JOB = "serve-drain"   # the drain's job under a daemon
 
 
 @dataclasses.dataclass
@@ -100,7 +106,6 @@ class SharedPodServer:
                  use_reduced: bool = True, device=None):
         self.spec = gpu_spec
         self.profile_fn = profile_fn
-        self.model = MarkovModel(gpu_spec.virtual(), three_state=True)
         self.jobs: Dict[str, Job] = {}
         self.profiles: Dict[str, KernelProfile] = {}
         self._exec: Dict[str, Callable] = {}
@@ -225,89 +230,77 @@ class SharedPodServer:
             torch.cuda.synchronize(self.device)
 
     # ---- engine-backed planning ---- #
-    def plan(self, engine: WorkloadEngine, *, rounds: int = 1500) -> dict:
+    def _pending(self) -> Dict[str, int]:
+        """The jobs with slices left, in submission order: their slices."""
+        return {n: j.num_slices for n, j in self.jobs.items()
+                if j.num_slices > 0}
+
+    def _truth(self) -> IPCTable:
+        """One measurement table for the server's lifetime: entries are
+        keyed by profile content, so repeated plans re-simulate nothing."""
+        if self._plan_truth is None:
+            self._plan_truth = IPCTable(self.spec.virtual(),
+                                        rounds=PLAN_ROUNDS, persist=False)
+        return self._plan_truth
+
+    def plan(self, engine: WorkloadEngine) -> dict:
         """Simulated drain of the pending jobs as one engine replay lane:
         predicts the fleet-style makespan and — because the lane shares the
         engine's scheduler for this (spec, profiles, alphas) identity —
         pre-warms every drain decision the dispatcher is about to make."""
-        order = [n for n, j in self.jobs.items() if j.num_slices > 0]
+        order = list(self._pending())
         if not order:
             return {"predicted_makespan_cycles": 0.0, "time_line": [],
                     "n_coschedules": 0}
-        # one measurement table for the server's lifetime: entries are
-        # keyed by profile content, so repeated drains re-simulate nothing
-        if self._plan_truth is None:
-            self._plan_truth = IPCTable(self.spec.virtual(), rounds=rounds,
-                                        persist=False)
-        lane = LaneSpec("KERNELET", self.profiles, order, self.spec,
-                        self._plan_truth,
-                        alpha_p=0.2, alpha_m=0.2, cp_margin=0.0)
+        lane = LaneSpec(PLAN_POLICY, self.profiles, order, self.spec,
+                        self._truth(), **SCHED_ARGS)
         res = engine.run([lane])[0]
         return {"predicted_makespan_cycles": float(res.total_cycles),
                 "time_line": res.time_line,
                 "n_coschedules": res.n_coschedules}
 
     def plan_arrivals(self, engine: WorkloadEngine, rate: float, *,
-                      seed: int = 0, slo_deadline: Optional[float] = None,
-                      rounds: int = 1500,
-                      policy: str = "KERNELET") -> dict:
+                      slo_deadline: Optional[float] = None) -> dict:
         """Arrival-timed drain plan: jobs land on a Poisson stream at
         ``rate`` (events per simulated cycle) and the engine lane admits,
         truncates and fast-forwards accordingly — predicting per-job queue
         wait, tail latency, and SLO attainment at ``slo_deadline`` in
         addition to the makespan. Like ``plan``, the replay warms the
-        shared decision cache for the real dispatcher. ``policy`` selects
-        the planning policy (``"EDF-KERNELET"``, ``"PWAIT-CP"``, ...)."""
-        order = [n for n, j in self.jobs.items() if j.num_slices > 0]
+        shared decision cache for the real dispatcher. Another policy or
+        arrival seed is a ``LaneSpec`` of its own through ``engine.run``."""
+        order = list(self._pending())
         if not order:
             return {"predicted_makespan_cycles": 0.0, "time_line": [],
                     "n_coschedules": 0, "latency": {}, "energy": {},
                     "completions": []}
-        if self._plan_truth is None:
-            self._plan_truth = IPCTable(self.spec.virtual(), rounds=rounds,
-                                        persist=False)
-        arrivals = poisson_arrivals(rate, len(order), seed=seed)
-        lane = LaneSpec(policy, self.profiles, order, self.spec,
-                        self._plan_truth, alpha_p=0.2, alpha_m=0.2,
-                        cp_margin=0.0, arrivals=list(arrivals),
-                        slo_deadline=slo_deadline)
+        arrivals = poisson_arrivals(rate, len(order), seed=PLAN_SEED)
+        lane = LaneSpec(PLAN_POLICY, self.profiles, order, self.spec,
+                        self._truth(), **SCHED_ARGS,
+                        arrivals=list(arrivals), slo_deadline=slo_deadline)
         res = engine.run([lane])[0]
         return {"predicted_makespan_cycles": float(res.total_cycles),
                 "time_line": res.time_line,
                 "n_coschedules": res.n_coschedules,
-                "policy": policy,
+                "policy": PLAN_POLICY,
                 "latency": dict(res.latency_metrics(slo_deadline)),
                 "energy": dict(res.energy_metrics()),
                 "completions": res.completions}
 
-    def plan_fleet(self, n_pods: int, rate: float, *,
-                   pod_specs=None, seed: int = 0,
-                   slo_deadline: Optional[float] = None,
-                   rounds: int = 1500, policy: str = "KERNELET",
-                   deal="auto") -> dict:
+    def plan_fleet(self, n_pods: int, rate: float) -> dict:
         """Fleet-dealing plan: replays the pending jobs' Poisson stream
-        over ``n_pods`` simulated pods through ``run_fleet``, dealing with
-        ``deal`` (``"auto"`` = least-predicted-backlog under arrivals).
-        ``pod_specs`` (one ``GPUSpec`` per pod) plans a mixed-pod fleet.
-        Returns the pooled latency prediction plus the per-pod split."""
-        order = [n for n, j in self.jobs.items() if j.num_slices > 0]
+        over ``n_pods`` simulated pods of the server's spec through
+        ``run_fleet``, dealing by least predicted backlog (``"auto"``).
+        Returns the pooled latency prediction plus the per-pod split. A
+        mixed-pod fleet, another policy or deal goes to ``run_fleet``
+        itself, as ``examples/multi_tenant_serving.py`` does."""
+        order = list(self._pending())
         if not order:
             return {"predicted_makespan_cycles": 0.0, "latency": {},
                     "energy": {}, "per_pod": [], "pods": [], "deal": None}
-        if pod_specs is not None:
-            pod_specs = list(pod_specs)
-            if len(pod_specs) != n_pods:
-                raise ValueError(f"n_pods={n_pods} but {len(pod_specs)} "
-                                 "pod_specs given")
-        if self._plan_truth is None:
-            self._plan_truth = IPCTable(self.spec.virtual(), rounds=rounds,
-                                        persist=False)
-        arrivals = list(poisson_arrivals(rate, len(order), seed=seed))
-        fleet = run_fleet(policy, self.profiles, order, self.spec,
-                          self._plan_truth, n_pods, alpha_p=0.2,
-                          alpha_m=0.2, cp_margin=0.0, arrivals=arrivals,
-                          slo_deadline=slo_deadline, deal=deal,
-                          gpus=pod_specs)
+        arrivals = list(poisson_arrivals(rate, len(order), seed=PLAN_SEED))
+        fleet = run_fleet(PLAN_POLICY, self.profiles, order, self.spec,
+                          self._truth(), n_pods, **SCHED_ARGS,
+                          arrivals=arrivals)
         return {"predicted_makespan_cycles": float(fleet.makespan),
                 "latency": dict(fleet.latency),
                 "energy": dict(fleet.energy),
@@ -315,77 +308,7 @@ class SharedPodServer:
                             for lane in fleet.lanes],
                 "pods": [s.name for s in fleet.gpus],
                 "deal": fleet.deal,
-                "policy": policy}
-
-    # ---- daemon-backed drain control ---- #
-    def _register_drain_job(self, daemon, job_name: str,
-                            plan_policy: str):
-        """Register this drain as an ``external`` job in the daemon's
-        durable store and take its lease — the single-writer
-        ``queued → running`` gate, so the dispatch below is cancellable,
-        pausable and visible exactly like a daemon-drained lane (fleet
-        pods never steal it: ``serve_once`` skips external specs). A
-        previously paused drain re-acquires from ``paused`` and resumes
-        the remaining slices."""
-        pending = {n: j.num_slices for n, j in self.jobs.items()
-                   if j.num_slices > 0}
-        st = daemon.store.state(job_name)
-        if st is None:
-            daemon.submit(job_name, {
-                "external": True, "kind": "serve-drain",
-                "policy": plan_policy, "pending": pending})
-            st = QUEUED
-        epoch = daemon.store.acquire_lease(
-            job_name, daemon.pod_id, daemon.lease_ttl,
-            from_state=PAUSED if st == PAUSED else QUEUED,
-            info=f"serve-drain dispatch ({len(pending)} tenants)")
-        if epoch is None:
-            raise RuntimeError(
-                f"drain job {job_name!r} is not claimable "
-                f"(state {daemon.store.state(job_name)!r})")
-        return job_name, (daemon.pod_id, epoch)
-
-    def _drain_control(self, daemon, job_id: str, fence,
-                       round_idx: int) -> Optional[str]:
-        """One round-boundary control check: honor pending cancel/pause
-        requests, heartbeat the lease, checkpoint remaining slices.
-        Returns the state the drain stopped in (``cancelled``,
-        ``paused``, or ``"lost"`` when the lease was stolen), or None to
-        keep dispatching."""
-        pod_id, epoch = fence
-
-        def ckpt():
-            daemon.store.save_checkpoint(
-                job_id, round_idx,
-                {"pending": {n: j.num_slices
-                             for n, j in self.jobs.items()
-                             if j.num_slices > 0}},
-                fence=fence)
-        try:
-            ctl = daemon.poll_control(job_id)
-            st = daemon.store.state(job_id)
-            if st != RUNNING:
-                return st      # requeued/cancelled behind our back
-            if ctl == "cancel":
-                ckpt()
-                daemon.store.transition(
-                    job_id, CANCELLED,
-                    f"cancelled at round {round_idx}", fence=fence)
-                return CANCELLED
-            if ctl == "pause":
-                ckpt()
-                daemon.store.transition(
-                    job_id, PAUSED, f"paused at round {round_idx}",
-                    fence=fence)
-                return PAUSED
-            daemon.store.renew_lease(job_id, pod_id, epoch,
-                                     daemon.lease_ttl)
-            ckpt()
-        except StaleLease:
-            return "lost"
-        except JobStoreError:
-            return None    # transient store trouble never stops work
-        return None
+                "policy": PLAN_POLICY}
 
     # ---- scheduling + interleaved dispatch ---- #
     def _round(self, pairs):
@@ -418,24 +341,20 @@ class SharedPodServer:
                 self._sync()
             return outs
 
-    def drain(self, *, max_rounds: int = 10000, plan_first: bool = True,
-              arrival_rate: Optional[float] = None,
-              slo_deadline: Optional[float] = None,
-              plan_policy: str = "KERNELET", daemon=None,
-              job_name: str = "serve-drain"):
-        """Dispatch every pending job. ``arrival_rate`` switches the
-        planning stage to the arrival-timed replay (``plan_arrivals``);
-        ``plan_policy`` selects the planning policy.
+    def drain(self, *, plan_first: bool = True, daemon=None):
+        """Dispatch every pending job: ``plan_first`` plans the drain
+        first (``plan``, which also warms the dispatcher's decisions).
 
         ``daemon`` (a ``ServingDaemon``) routes the drain through the
-        durable job path: the dispatch runs under a lease-gated
-        ``external`` job named ``job_name``, checkpoints its remaining
-        slices every round, and honors ``daemon.cancel`` /
-        ``daemon.pause`` at round boundaries. The result gains ``job_id``
-        and ``state`` (``finished`` / ``cancelled`` / ``paused`` /
-        ``"lost"`` if the lease was stolen)."""
-        missing = sorted(n for n, j in self.jobs.items() if j.num_slices > 0
-                         and (n not in self._exec or n not in self.profiles))
+        durable job path: the dispatch runs as the ``external`` job
+        ``"serve-drain"`` under a ``runtime.daemon.DrainLease``, which
+        checkpoints its remaining slices every round and honors
+        ``daemon.cancel`` / ``daemon.pause`` at round boundaries. The
+        result gains ``job_id`` and ``state`` (``finished`` /
+        ``cancelled`` / ``paused`` / ``"lost"`` if the lease was
+        stolen)."""
+        missing = sorted(n for n in self._pending()
+                         if n not in self._exec or n not in self.profiles)
         if missing:
             raise ValueError(
                 f"pending jobs with no registered profile/executable: "
@@ -444,36 +363,23 @@ class SharedPodServer:
         with spans.span(spans.DRAIN):
             engine = WorkloadEngine()
             sched = engine.scheduler_for(self.spec, self.profiles,
-                                         alpha_p=0.2, alpha_m=0.2,
-                                         cp_margin=0.0)
+                                         **SCHED_ARGS)
             plan = None
             if plan_first:
                 with spans.span(spans.PLAN):
-                    plan = (self.plan_arrivals(engine, arrival_rate,
-                                               slo_deadline=slo_deadline,
-                                               policy=plan_policy)
-                            if arrival_rate is not None
-                            else self.plan(engine))
-            jid = fence = None
-            if daemon is not None:
-                jid, fence = self._register_drain_job(daemon, job_name,
-                                                      plan_policy)
+                    plan = self.plan(engine)
+            lease = (None if daemon is None
+                     else DrainLease(daemon, DRAIN_JOB, self._pending()))
             t0 = time.perf_counter()
             executed = []
-            while any(j.num_slices > 0 for j in self.jobs.values()):
-                if daemon is not None:
-                    stopped = self._drain_control(daemon, jid, fence,
-                                                  len(executed))
+            stopped = None
+            while pending := self._pending():
+                if lease is not None:
+                    stopped = lease.check(len(executed), pending)
                     if stopped is not None:
-                        return {"rounds": executed,
-                                "wall_s": time.perf_counter() - t0,
-                                "predicted_gain":
-                                    self._predicted_gain(executed),
-                                "plan": plan, "job_id": jid,
-                                "state": stopped}
-                act = [n for n, j in self.jobs.items() if j.num_slices > 0]
+                        break
                 with spans.span(spans.DECIDE):
-                    cs = sched.find_coschedule(act)
+                    cs = sched.find_coschedule(list(pending))
                 if cs.k2 is None:
                     n_run = min(self.jobs[cs.k1].num_slices, 8)
                     self._round([(cs.k1, n_run)])
@@ -490,23 +396,17 @@ class SharedPodServer:
                 j1.num_slices -= n1
                 j2.num_slices -= n2
                 executed.append((cs.k1, cs.k2, n1, n2, cs.cp))
-                if len(executed) > max_rounds:
+                if len(executed) > MAX_ROUNDS:
                     raise RuntimeError("scheduler did not drain")
             wall = time.perf_counter() - t0
             out = {"rounds": executed, "wall_s": wall,
                    "predicted_gain": self._predicted_gain(executed),
                    "plan": plan}
-            if daemon is not None:
-                out["job_id"] = jid
-                try:
-                    daemon.store.transition(
-                        jid, FINISHED, "drained",
-                        result={"rounds": len(executed), "wall_s": wall,
-                                "predicted_gain": out["predicted_gain"]},
-                        fence=fence)
-                    out["state"] = FINISHED
-                except StaleLease:
-                    out["state"] = "lost"
+            if lease is not None:
+                out["job_id"] = lease.job_id
+                out["state"] = stopped if stopped is not None else \
+                    lease.finish({"rounds": len(executed), "wall_s": wall,
+                                  "predicted_gain": out["predicted_gain"]})
             return out
 
     def _predicted_gain(self, executed) -> float:

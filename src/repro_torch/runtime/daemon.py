@@ -42,6 +42,10 @@ dispatcher for the repro's replay lanes:
     lane's ``cap_at`` so the engine truncates the *running* phase at that
     clock value — the PR 4 arrival-truncation cap reused as the
     block-granularity preemption point (Pai et al., arXiv 1406.6037).
+  * **External drains.** ``DrainLease`` runs a dispatch the daemon does
+    not drain itself (``SharedPodServer.drain``) as an ``external`` job
+    under the same leases, fences, checkpoints and control requests,
+    checked at the dispatcher's round boundaries.
   * **Read-only degrade.** If the durable store cannot be opened the
     daemon falls back to an in-memory ``MemoryJobStore`` and keeps
     planning/serving (``read_only=True``); nothing survives the process,
@@ -493,6 +497,86 @@ class ServingDaemon:
                               result=self._result_dict(lane, phase),
                               fence=fence)
         self.store.drop_checkpoint(job_id)
+        return FINISHED
+
+
+class DrainLease:
+    """A dispatch outside the daemon (``SharedPodServer.drain``) run as a
+    lease-gated ``external`` job ``job_id`` of ``daemon``: cancellable,
+    pausable and visible exactly like a daemon-drained lane, and never
+    stolen by a fleet pod (``serve_once`` skips external specs).
+
+    ``daemon`` needs only ``store``, ``pod_id``, ``lease_ttl``, ``submit``
+    and ``poll_control``. Building the lease registers the job if the
+    store lacks it (its spec records ``pending``, the slices left a
+    tenant) and takes the ``queued → running`` lease, or re-takes it from
+    ``paused`` so a paused drain resumes its remaining slices; a job that
+    cannot be claimed raises ``RuntimeError``."""
+
+    def __init__(self, daemon, job_id: str, pending: Dict[str, int]):
+        self.daemon, self.job_id = daemon, job_id
+        st = daemon.store.state(job_id)
+        if st is None:
+            daemon.submit(job_id, {
+                "external": True, "kind": "serve-drain",
+                "policy": "KERNELET", "pending": pending})
+            st = QUEUED
+        epoch = daemon.store.acquire_lease(
+            job_id, daemon.pod_id, daemon.lease_ttl,
+            from_state=PAUSED if st == PAUSED else QUEUED,
+            info=f"serve-drain dispatch ({len(pending)} tenants)")
+        if epoch is None:
+            raise RuntimeError(
+                f"drain job {job_id!r} is not claimable "
+                f"(state {daemon.store.state(job_id)!r})")
+        self.fence = (daemon.pod_id, epoch)
+
+    def check(self, round_idx: int,
+              pending: Dict[str, int]) -> Optional[str]:
+        """One round-boundary control check: honor a pending cancel or
+        pause request, heartbeat the lease, checkpoint ``pending``.
+        Returns the state the drain stopped in (``cancelled``, ``paused``,
+        whatever state the job was moved to behind its back, or ``LOST``
+        when the lease was stolen), or None to keep dispatching."""
+        daemon, job_id, fence = self.daemon, self.job_id, self.fence
+        store = daemon.store
+
+        def ckpt():
+            store.save_checkpoint(job_id, round_idx, {"pending": pending},
+                                  fence=fence)
+        try:
+            ctl = daemon.poll_control(job_id)
+            st = store.state(job_id)
+            if st != RUNNING:
+                return st      # requeued/cancelled behind our back
+            if ctl == "cancel":
+                ckpt()
+                store.transition(job_id, CANCELLED,
+                                 f"cancelled at round {round_idx}",
+                                 fence=fence)
+                return CANCELLED
+            if ctl == "pause":
+                ckpt()
+                store.transition(job_id, PAUSED,
+                                 f"paused at round {round_idx}",
+                                 fence=fence)
+                return PAUSED
+            store.renew_lease(job_id, fence[0], fence[1], daemon.lease_ttl)
+            ckpt()
+        except StaleLease:
+            return LOST
+        except JobStoreError:
+            return None    # transient store trouble never stops work
+        return None
+
+    def finish(self, result: dict) -> str:
+        """The fenced ``finished`` transition with ``result``; ``LOST``
+        if the lease was stolen since the last check."""
+        try:
+            self.daemon.store.transition(self.job_id, FINISHED, "drained",
+                                         result=result, fence=self.fence)
+        except StaleLease:
+            return LOST
         return FINISHED
 
 

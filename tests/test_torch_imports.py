@@ -58,3 +58,28 @@ def test_dynamic_config_import_points_at_the_port():
     from repro_torch.configs import ARCH_IDS, get_config
     for arch in ARCH_IDS:
         assert type(get_config(arch)).__module__ == "repro_torch.configs.base"
+
+
+def test_kernels_import_nothing_above_them():
+    """The kernel layer sits under the model, the dispatcher and the
+    runtime: no module of ``kernels/`` imports theirs, at the top or inside
+    a function."""
+    above = ("models", "launch", "runtime", "core")
+    files = sorted((PORT / "kernels").glob("*.py"))
+    assert len(files) > 5
+    bad = {}
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module] + [f"{node.module}.{alias.name}"
+                                         for alias in node.names]
+            else:
+                continue
+            hits = [m for m in names if m.split(".")[:2] in
+                    [["repro_torch", a] for a in above]]
+            if hits:
+                bad.setdefault(path.name, []).extend(hits)
+    assert not bad, bad
