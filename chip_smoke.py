@@ -8,8 +8,9 @@ version, drives the port's main paths, and prints what it measured.
 Phases, each asserting (a failure exits non-zero and prints no result):
   1. device check, ``nvidia-smi`` name, power limit and maximum SM clock,
      the card's SM count beside the H100 model's, parallel nvcc build of
-     all seven kernels (the five TPU kernels' ports, D1, decode attention,
-     and D2, MLA's latent decode attention) with each instance's registers
+     all eight kernels (the five TPU kernels' ports, D1, decode attention,
+     D2, MLA's latent decode attention, and G1, the dropless route's
+     grouped expert products) with each instance's registers
      and spills (K3's instances must spill nothing);
   2. each kernel against its plain version on the card, on the CPU tests'
      small grids and at the main paths' shapes, with kernel, plain and
@@ -34,7 +35,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      against one, its clusters' occupancy, and the bytes it moves beside
      its bound; 2h: D1 at the decode shapes; 2i: D2 at dsv2lite-mixed's
      decode shape, the reduced widths, 128 heads, a row block at an offset
-     and an empty one, timed at the first beside its bound);
+     and an empty one, timed at the first beside its bound; 2j: G1 at
+     dsv2lite-mixed's prompt, even and skewed counts, timed beside its
+     bound and the bucketed route it replaces);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -58,12 +61,15 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      launched once a layer per prefill run and D1 once a layer per decode
      run;
   3d. DeepSeek (MLA + MoE), counted the same way: deepseek-v2-236b at full
-     width cut to 4 layers (a prefill and a decode tenant) and
-     deepseek-v3-671b at full width cut to 4 layers (a prefill tenant),
-     served on the H100 model, one arch's weights at a time, with the v5e
-     model's decisions beside the H100 one's; K3 launched once a layer per
-     prefill run at D = 192, D1 never and D2 once a layer per decode run
-     (the absorbed MLA decode attends in its latent space);
+     width cut to 4 layers (a prefill and a decode tenant),
+     deepseek-v3-671b at full width cut to 4 layers (a prefill tenant) and
+     deepseek-v2-lite at full width cut to 4 layers (a 1 x 4096 prefill
+     tenant), served on the H100 model, one arch's weights at a time, with
+     the v5e model's decisions beside the H100 one's; K3 launched once a
+     layer per prefill run at D = 192, D1 never and D2 once a layer per
+     decode run (the absorbed MLA decode attends in its latent space), G1
+     twice a MoE layer per prefill run of the dropless route (V2-Lite's)
+     and never on a capacity route;
   3e. Qwen2-VL and Whisper, counted the same way: full-width, uncut
      qwen2-vl-7b (M-RoPE, 256 patch embeddings replacing the prompt's
      prefix; a prefill and a decode tenant) and whisper-small (encoder over
@@ -782,6 +788,9 @@ MLA_DECODE_SHAPES = (
     ("empty", (2, 16, 256, 512, 64), 100, 256))
 D2_KERNEL = "mla_decode_kernel"
 D2_COMBINE = "mla_combine_kernel"
+# G1 at dsv2lite-mixed's prompt: (tokens, top-k, experts, D, F)
+G1_SHAPE = (4096, 6, 64, 2048, 1408)
+G1_KERNELS = ("grouped_gate_up_kernel", "grouped_down_kernel")
 # the absorbed decode of one dsv2lite-mixed layer before D2: the f32 copy of
 # the latents and two f32 einsums, ~1.87 ms (PERF.md section 5; NVIDIA H100
 # 80GB HBM3, 700.00 W)
@@ -1309,6 +1318,124 @@ def mla_decode_work(b: int, h: int, rows: int, r: int, dr: int,
     row read once (q and the f32 partials, under 1% at the cell's shape,
     left out)."""
     return 2.0 * b * h * rows * (2 * r + dr), b * rows * (r + dr) * elt
+
+
+def grouped_experts_work(t: int, k: int, d: int, f: int, e: int,
+                         elt: int = 2):
+    """G1's (FLOPs, bytes) a call for ``t`` tokens routed top-``k`` over
+    ``e`` experts of width (D, F): the gate, up and down products' 2 x 3 x
+    D x F FLOPs a pair; every expert's three matrices read once, each
+    pair's row read and its output row written once."""
+    return 6.0 * t * k * d * f, 3 * e * d * f * elt + 2 * t * k * d * elt
+
+
+def g1_case(torch, dev, skewed: bool, seed: int = 0):
+    """G1's inputs at dsv2lite-mixed's prompt (``G1_SHAPE``), bf16 experts
+    of unit-variance products. Even: the same count every expert. Skewed:
+    one expert 3506 pairs (of 4096 tokens, as the cell's seeded router
+    sends), three experts none, the rest uneven."""
+    t, k, e, d, f = G1_SHAPE
+    n = t * k
+    g = torch.Generator().manual_seed(seed)
+    if skewed:
+        share = torch.rand(e, generator=g) ** 4
+        share[[5, 7, 20, 41]] = 0
+        counts = (share / share.sum() * (n - 3506)).floor().long()
+        counts[5] = 3506
+        counts[0] += n - int(counts.sum())
+    else:
+        counts = torch.full((e,), n // e)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).bfloat16()
+
+    return dict(xs=randn(n, d), counts=counts.to(dev),
+                weights=torch.rand(n, generator=gen, device=dev),
+                sort_idx=torch.randperm(n, generator=gen, device=dev),
+                wi=randn(e, d, f, scale=d ** -0.5),
+                wg=randn(e, d, f, scale=d ** -0.5),
+                wo=randn(e, f, d, scale=f ** -0.5))
+
+
+def grouped_experts_phase(torch, ops, rows) -> None:
+    """Phase 2j: G1 against its plain version at dsv2lite-mixed's prompt
+    (``G1_SHAPE``: 4096 tokens, top-6 of 64 experts, D 2048, F 1408), with
+    even counts and skewed ones (``g1_case``): within ``BF16_TOL``, two
+    launches a call, the same bits on a second call. Each timed (CUDA
+    events over 20 calls queued behind a spin kernel) beside the
+    operations' bound, the plain version's time and the route it replaces
+    (the buckets of a depth chosen from the counts read back, the hot
+    experts' rest one by one, the weighting and the scatter to the pairs'
+    slots), with the profiler's time of each of G1's two kernels. No one
+    PyTorch call computes a grouped product: no library time."""
+    from repro_torch.kernels import grouped_experts as GE
+    from repro_torch.models import moe as M
+    card = nvidia_smi("name,power.limit")
+    dev = torch.device("cuda")
+    t, k, e, d, f = G1_SHAPE
+    flops, nbytes = grouped_experts_work(t, k, d, f, e)
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    row = rows["grouped_experts"] = dict(
+        source="src/repro_torch/csrc/grouped_experts.cu",
+        replaces="none: models/moe.py _dropless_expert_compute (the "
+                 "reference's XLA einsums, src/repro/models/moe.py moe_ffn)",
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    for label in ("even", "skewed"):
+        case = g1_case(torch, dev, label == "skewed")
+        ops.reset_launches()
+        got = ops.grouped_experts(**case)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["grouped_experts"] == 2, ops.LAUNCHES
+        want = GE.plain(**case)
+        err = max_err(torch, got, want, BF16_TOL)
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert torch.equal(got, ops.grouped_experts(**case)), label
+        del got, want
+        ms = queued_ms(torch, lambda: ops.grouped_experts(**case), 20)
+        plain = time_ms(torch, lambda: GE.plain(**case), 2)
+        sizes = case["counts"].tolist()
+        seg = torch.repeat_interleave(torch.arange(e, device=dev),
+                                      case["counts"])
+        pos = torch.arange(t * k, device=dev) - (
+            torch.cumsum(case["counts"], 0) - case["counts"])[seg]
+
+        def buckets():
+            ys = M._dropless_expert_compute(
+                case["xs"], seg, pos, case["counts"].tolist(), case["wi"],
+                case["wg"], case["wo"], "swiglu")
+            w = case["weights"].to(ys.dtype)[:, None]
+            return M._combine(ys * w, case["sort_idx"], k)
+
+        before = time_ms(torch, buckets, 3)
+        evs = kernel_events(torch, lambda: [ops.grouped_experts(**case)
+                                            for _ in range(5)],
+                            names_all(*G1_KERNELS))
+        by = {}
+        for sym in G1_KERNELS:
+            mine = [x for x in evs if sym in x.key]
+            assert mine, (sym, [x.key for x in evs])
+            by[sym] = (sum(x.self_device_time_total for x in mine) / 1e3
+                       / sum(x.count for x in mine))
+        log(f"[2j grouped_experts {label}] pairs an expert {min(sizes)} to "
+            f"{max(sizes)} ({sizes.count(0)} empty) of {t} x {k}: max abs "
+            f"err {err:.3e}, relative {rel:.3e} (tol bf16 2e-2); kernel "
+            f"{ms:.4f} ms (queued; profiler {G1_KERNELS[0]} "
+            f"{by[G1_KERNELS[0]]:.4f} ms + {G1_KERNELS[1]} "
+            f"{by[G1_KERNELS[1]]:.4f} ms), bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB), "
+            f"{b_ms / ms:.1%} of it; plain {plain:.4f} ms; the buckets it "
+            f"replaces (counts on the host) {before:.4f} ms; {card}")
+        key = "" if label == "even" else "g1_skewed_"
+        row.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}max_abs_err": err, f"{key}rel_err": rel,
+                    f"g1_{label}_buckets_ms": before,
+                    f"g1_{label}_gate_up_ms": by[G1_KERNELS[0]],
+                    f"g1_{label}_down_ms": by[G1_KERNELS[1]]})
+        del case, seg, pos
+    torch.cuda.empty_cache()
 
 
 def mla_decode_phase(torch, ops, ref, randn, rows) -> None:
@@ -3012,6 +3139,9 @@ def main() -> int:
     # ---- phase 2i: D2 mla_decode_attention at the latent decode shapes ----
     mla_decode_phase(torch, ops, ref, randn, rows)
 
+    # ---- phase 2j: G1 grouped_experts at the dropless prompt's shape -----
+    grouped_experts_phase(torch, ops, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -3265,7 +3395,10 @@ def main() -> int:
                   4096)],
           "deepseek-v3-671b": [
               Job("tenantK-dsv3-prefill", "deepseek-v3-671b", "prefill", 2,
-                  1, 2048)]}
+                  1, 2048)],
+          "deepseek-v2-lite": [
+              Job("tenantL-dsv2lite-prefill", "deepseek-v2-lite", "prefill",
+                  2, 1, 4096)]}
     for arch, arch_jobs in ds.items():
         full = get_config(arch)
         cfg = dataclasses.replace(full, num_layers=DS_DEPTH)
@@ -3304,6 +3437,12 @@ def main() -> int:
         d2 = sum(mla_decode_layers(cfg) * prefill_runs(res["rounds"], j.name)
                  for j in arch_jobs if j.phase == "decode")
         assert ops.LAUNCHES["mla_decode"] == d2, (arch, ops.LAUNCHES, d2)
+        # a dropless route's prompt runs its routed experts on G1, two
+        # launches a MoE layer a prefill run; a capacity route never
+        g1 = 2 * n_moe * sum(prefill_runs(res["rounds"], j.name)
+                             for j in arch_jobs if j.phase == "prefill") \
+            if cfg.moe.capacity_factor <= 0 else 0
+        assert ops.LAUNCHES["grouped_experts"] == g1, (arch, ops.LAUNCHES, g1)
         logits = {name: srv._exec[name]() for name in srv.jobs}
         torch.cuda.synchronize()
         for job in arch_jobs:
@@ -3572,7 +3711,8 @@ def main() -> int:
                         **{k: v for k, v in row.items()
                            if k.startswith(("d80_", "d160_", "d192_", "d128_",
                                             "d64_", "d48_", "train_",
-                                            "shard_", "dec_", "mla_"))}})
+                                            "shard_", "dec_", "mla_",
+                                            "g1_"))}})
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(row[key]), (row["name"], key)

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NAMES = ("sliced_matmul", "coschedule", "flash_attention", "rwkv6_scan",
-         "rg_lru", "decode_attention", "mla_decode")
+         "rg_lru", "decode_attention", "mla_decode", "grouped_experts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh

@@ -6,7 +6,7 @@ raises (K3, K4 and K5 take strided slices, copied whole first; D1 and D2
 read a cache in place through its strides, never a copy); a CPU tensor
 goes to the plain version: ``ref`` for K1-K5 and D1 (for K4 and K5 the
 chunked and scanned forms ``ref.rwkv6_chunked`` and ``ref.rglru_scan``),
-and ``mla_decode.plain`` for D2.
+``mla_decode.plain`` for D2 and ``grouped_experts.plain`` for G1.
 A meta tensor (the dry run's, shapes and no data) goes to the plain
 version too: no kernel can run on it. Nothing else selects the path: there
 is no counterpart of ``REPRO_PALLAS_INTERPRET``.
@@ -20,6 +20,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import coschedule as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_experts as _ge
 from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import rg_lru as _lru
 from repro_torch.kernels import rwkv6_scan as _wkv
@@ -133,3 +134,18 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, *, lo=None, hi: int,
     return _mla.mla_decode_attention(q_lat, q_rope, ckv, krope, lo=lo,
                                      hi=hi, offset=offset, scale=scale,
                                      n_splits=n_splits)
+
+
+def grouped_experts(xs, counts, weights, sort_idx, wi, wg, wo):
+    """A dropless MoE route's routed experts over its (token, choice)
+    pairs sorted by expert: xs (N, D), each expert's count ``counts``
+    (E,), the pairs' router ``weights`` (N,) and flat (token, choice)
+    slots ``sort_idx`` (N,) -> (N, D) in slot order, row ``sort_idx[i]``
+    being ``weights[i] * (silu(xs[i] @ wg[e]) * (xs[i] @ wi[e])) @ wo[e]``
+    (``grouped_experts.plain``). Not a kernel of the reference, which
+    leaves the experts to XLA's einsums. On the card the counts stay on
+    the device: two launches, no read back (G1)."""
+    _ge.check_shapes(xs, counts, weights, sort_idx, wi, wg, wo)
+    if _on_cpu(xs):
+        return _ge.plain(xs, counts, weights, sort_idx, wi, wg, wo)
+    return _ge.grouped_experts(xs, counts, weights, sort_idx, wi, wg, wo)

@@ -7,15 +7,19 @@ of the (token, choice) pairs by expert id, a capacity-bucketed scatter into
 into their tokens in a fixed order (``_combine``). Pairs past an expert's
 capacity are dropped; which ones depends on the sort order, so the sort is
 stable, as ``jnp.argsort`` is. With ``capacity_factor`` 0 the route is
-dropless (DeepSeek-V2 drops tokens only in training): the experts' counts
-are read back to the host once a layer, the batched products run in
-buckets of a depth chosen from them, and the pairs of the few experts
-that have more run expert by expert (``_dropless_expert_compute``); or,
-where the tokens are few (a decode batch) or a CUDA graph is being
-captured, every bucket is as deep as the tokens, so nothing is read back
-(``_dropless_sizes``). With ``norm_topk_prob`` false the pairs are
-weighted by their raw router probabilities. Inside a profiler's trace the
-route (scores, top-k, sort, the read of the counts) is the span
+dropless (DeepSeek-V2 drops tokens only in training). A served prompt on
+the card (more than ``STATIC_DEPTH`` tokens, bf16 SwiGLU experts, no
+autograd graph, no token block) runs the sorted pairs through G1
+(``ops.grouped_experts``), which finds each expert's rows on the device:
+nothing is read back (``_grouped``). Elsewhere, where the tokens are few
+(a decode batch) or a CUDA graph is being captured, every bucket is as deep
+as the tokens, so nothing is read back either (``_dropless_sizes``). Else
+(training, the CPU) the experts' counts are read back to the host once a
+layer, the batched products run in buckets of a depth chosen from them,
+and the pairs of the few experts that have more run expert by expert
+(``_dropless_expert_compute``). With ``norm_topk_prob`` false the pairs
+are weighted by their raw router probabilities. Inside a profiler's trace
+the route (scores, top-k, sort, any read of the counts) is the span
 ``model.route`` and the experts' products with the combine
 ``model.experts``.
 
@@ -26,9 +30,10 @@ capacity of the global tokens, the drops of the global sort in row-major
 (row, position) order (one all-gather of each row's E expert counts),
 and the aux as this rank's share of the global one.
 
-The expert products are plain batched einsums, which the reference leaves
-to XLA outside any Pallas kernel. They touch every expert's weights
-whatever the routing, so a decode step reads all E experts.
+The bucketed expert products are plain batched einsums, which the
+reference leaves to XLA outside any Pallas kernel. They touch every
+expert's weights whatever the routing, so a decode step reads all E
+experts.
 
 Expert parallelism: ``moe_ffn_ep`` is one rank's part of the reference's
 ``shard_map`` route — its token shard routed, bucketed by target expert
@@ -51,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import spans
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 
@@ -120,6 +126,20 @@ def _dropless_sizes(counts, t: int):
             counts.is_cuda and torch.cuda.is_current_stream_capturing()):
         return None
     return counts.tolist()
+
+
+def _grouped(x2d, p, cfg, block, t: int) -> bool:
+    """Whether a route of ``t`` tokens runs its routed experts on G1
+    (``ops.grouped_experts``), which reads no count back: dropless, more
+    than ``STATIC_DEPTH`` tokens, no token block, on the card, no autograd
+    graph recorded through it (the kernels have no backward), and bf16
+    SwiGLU experts, which is what the kernels compute."""
+    experts = (p["wi"], p["wg"], p["wo"])
+    return (cfg.moe.capacity_factor <= 0 and block is None
+            and t > STATIC_DEPTH and x2d.is_cuda
+            and not L.records_grad(x2d, *experts)
+            and all(w.dtype == torch.bfloat16 for w in experts)
+            and L.act_fn(cfg.act) is torch.nn.functional.silu)
 
 
 def _balance_aux(probs_mean, counts, m):
@@ -222,15 +242,15 @@ def _moe_tokens(x2d, p, cfg, block=None, rows: int = 1):
     m = cfg.moe
     t, d = x2d.shape
     k = m.top_k
+    grouped = _grouped(x2d, p, cfg, block, t)
     with spans.span(spans.ROUTE):
-        if block is None:
-            top_w, top_i, aux = _route(x2d, p["router"], m)
-        else:
-            scores, top_w, top_i = _top_k(x2d, p["router"], m)
+        scores, top_w, top_i = _top_k(x2d, p["router"], m)
         flat_e = top_i.reshape(-1)                             # (T*k,)
         counts = _counts(flat_e, m.num_experts)
         t_all = t
-        if block is not None:
+        if block is None:              # ``_route``'s aux, from these counts
+            aux = _balance_aux(scores.mean(dim=-2), counts, m)
+        else:
             # frac from the global counts (they carry no gradient),
             # probs_mean this block's score sum over the global token
             # count: the shares and their gradients sum over the blocks
@@ -245,13 +265,14 @@ def _moe_tokens(x2d, p, cfg, block=None, rows: int = 1):
                                        * m.capacity_factor)), 4)
         elif block is not None:
             capacity = t_all           # no global place is past it
-        else:
+        elif not grouped:
             capacity, sizes = t, _dropless_sizes(counts, t)
         sort_idx = torch.argsort(flat_e, stable=True)
         tok_idx = sort_idx // k
-        seg = flat_e[sort_idx]
-        starts = torch.cumsum(counts, 0) - counts
-        pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
+        if not grouped:                # the buckets' places
+            seg = flat_e[sort_idx]
+            starts = torch.cumsum(counts, 0) - counts
+            pos_in_seg = torch.arange(t * k, device=x2d.device) - starts[seg]
         if block is not None:
             # kept: the pair's global place is within the capacity;
             # bucketed at its place here (the kept pairs of an expert are
@@ -264,6 +285,11 @@ def _moe_tokens(x2d, p, cfg, block=None, rows: int = 1):
             capacity = max(int(kept.max()), 1)
     with spans.span(spans.EXPERTS):
         xs = x2d[tok_idx]                                      # (T*k, D)
+        if grouped:
+            flat = ops.grouped_experts(xs, counts,
+                                       top_w.reshape(-1)[sort_idx], sort_idx,
+                                       p["wi"], p["wg"], p["wo"])
+            return flat.unflatten(0, (-1, k)).sum(1), aux     # _combine's sum
         if sizes is not None:
             ys = _dropless_expert_compute(xs, seg, pos_in_seg, sizes,
                                           p["wi"], p["wg"], p["wo"], cfg.act)

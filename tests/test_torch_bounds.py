@@ -232,6 +232,24 @@ def test_decode_work_and_bound(smoke):
     assert by == "bytes" and ms == pytest.approx(0.0601715, rel=1e-5)
 
 
+def test_grouped_experts_work_and_bound(smoke):
+    """G1 at dsv2lite-mixed's prompt: 4096 x 6 pairs of three 2048 x 1408
+    products, 425.2 GFLOP, bound by the operations at 0.430 ms (the 64
+    experts' 1.107 GB and the pairs' rows in and out, 1.308 GB, would take
+    0.390 ms); the shape is the cell's config's."""
+    sys.path.insert(0, str(_PATH.parent / "src"))
+    from repro_torch.configs import get_config
+    t, k, e, d, f = smoke.G1_SHAPE
+    m = get_config("deepseek-v2-lite").moe
+    assert (k, e, f) == (m.top_k, m.num_experts, m.d_ff_expert)
+    assert (t, d) == (4096, get_config("deepseek-v2-lite").d_model)
+    flops, nbytes = smoke.grouped_experts_work(t, k, d, f, e)
+    assert flops == pytest.approx(425.2e9, rel=1e-4)
+    assert nbytes == 3 * 64 * 2048 * 1408 * 2 + 2 * 4096 * 6 * 2048 * 2
+    ms, by = smoke.bound(flops, nbytes, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(0.42995, rel=1e-4)
+
+
 def test_decode_attn_layers_and_shapes(smoke):
     """D1's launches a decode step of each arch, and every phase-2h shape
     one the kernel takes."""

@@ -16,6 +16,7 @@ from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import grouped_experts as GE
 from repro_torch.kernels import mla_decode as MLA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rg_lru as LRU
@@ -1051,3 +1052,110 @@ def test_mla_decode_step_allocates_no_f32_latent_copy(cuda):
             break
     assert any("mla_decode_kernel" in n for n in names), names
     assert not any("gemm_f32f32" in n for n in names), names
+
+
+def _g1_case(cuda, skewed: bool, seed: int = 0):
+    """G1's inputs at dsv2lite-mixed's prompt: 4096 tokens, top-6 of 64
+    experts, D 2048, F 1408, bf16 experts of unit-variance products. Even:
+    384 pairs an expert. Skewed: one expert 3506 pairs (of 4096 tokens, as
+    the seeded router sends), three experts none, the rest uneven."""
+    t, k, e, d, f = 4096, 6, 64, 2048, 1408
+    n = t * k
+    g = torch.Generator().manual_seed(seed)
+    if skewed:
+        share = torch.rand(e, generator=g) ** 4
+        share[[5, 7, 20, 41]] = 0
+        counts = (share / share.sum() * (n - 3506)).floor().long()
+        counts[5] = 3506
+        counts[0] += n - int(counts.sum())
+    else:
+        counts = torch.full((e,), n // e)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda) * scale
+                ).bfloat16()
+
+    return dict(xs=randn(n, d), counts=counts.to(cuda),
+                weights=torch.rand(n, generator=gen, device=cuda),
+                sort_idx=torch.randperm(n, generator=gen, device=cuda),
+                wi=randn(e, d, f, scale=d ** -0.5),
+                wg=randn(e, d, f, scale=d ** -0.5),
+                wo=randn(e, f, d, scale=f ** -0.5))
+
+
+@pytest.mark.parametrize("skewed", [False, True], ids=["even", "skewed"])
+def test_grouped_experts_matches_plain(cuda, skewed):
+    """G1 against ``grouped_experts.plain`` (f32 products of the same bf16
+    inputs, h and each row rounded once) at the cell's shape: within
+    bf16's tolerance, since the f32 sums run in another order and may move
+    a rounding by one ulp; two launches; a second call the same bits."""
+    case = _g1_case(cuda, skewed)
+    ops.reset_launches()
+    got = ops.grouped_experts(**case)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["grouped_experts"] == 2
+    want = GE.plain(**case)
+    torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+    rel = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(rel) < 2e-3, float(rel)
+    assert torch.equal(got, ops.grouped_experts(**case))
+
+
+def _dsv2lite(cuda, layers: int):
+    """Full-width DeepSeek-V2-Lite cut to ``layers`` layers (the first
+    dense), bf16 on the card."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"),
+                              num_layers=layers)
+    return cfg, T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                              device=cuda)
+
+
+def test_a_served_prompts_moe_layer_reads_nothing_back(cuda, monkeypatch):
+    """One full-width DeepSeek-V2-Lite MoE layer over a 4096-token prompt
+    under inference mode runs with ``set_sync_debug_mode("error")`` (no
+    read of the counts, no synchronising op), launches G1 twice, and
+    agrees with the route that reads the counts back (bf16 both)."""
+    from repro_torch.models import moe as M
+    cfg, params = _dsv2lite(cuda, 2)
+    p = T._tree_map(lambda a: a[0], params["stage1"]["sub0"]["moe"])
+    x = torch.randn(1, 4096, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).bfloat16()
+    with torch.inference_mode():
+        M.moe_ffn(x, p, cfg)                  # builds G1
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, _ = M.moe_ffn(x, p, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["grouped_experts"] == 2
+        monkeypatch.setattr(M, "_grouped", lambda *args: False)
+        want, _ = M.moe_ffn(x, p, cfg)
+    rel = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(rel) < 1e-2, float(rel)
+
+
+def test_g1_launches_twice_a_moe_layer_of_a_prompt_and_never_in_decode(cuda):
+    """A prompt of 256 tokens through three full-width layers (one dense,
+    two MoE): G1 twice a MoE layer; a decode step of 8 sequences keeps the
+    static buckets: no G1."""
+    cfg, params = _dsv2lite(cuda, 3)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), device=cuda,
+                           generator=gen)
+    caches = T.init_decode_caches(cfg, 8, 64, device=cuda)
+    with torch.inference_mode():
+        ops.reset_launches()
+        logits, _, _ = T.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["grouped_experts"] == 2 * (
+            cfg.num_layers - cfg.moe.first_dense_layers)
+        ops.reset_launches()
+        T.decode_step(params, cfg, caches, tokens[0, :8], 0)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["grouped_experts"] == 0
+    assert bool(torch.isfinite(logits.float()).all())

@@ -13,6 +13,7 @@ from repro.kernels import coschedule as jax_cs
 from repro.kernels import ops as jax_ops
 from repro_torch.kernels import coschedule as CS
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import grouped_experts as GE
 from repro_torch.kernels import ops
 from repro_torch.kernels import rg_lru as LRU
 from repro_torch.kernels import rwkv6_scan as WKV
@@ -133,6 +134,9 @@ def test_shape_checks_match_the_reference():
                                  t[None, None, :, :64]),
     lambda t: WKV.rwkv6_scan(*[t.view(1, 128, 2, 64)] * 4, t[0].view(2, 64)),
     lambda t: LRU.rg_lru(t[None], t[None]),
+    lambda t: GE.grouped_experts(t, t[0, :2].long(), t[:, 0],
+                                 t[:, 0].long(), *[t.view(2, 128, 64)] * 2,
+                                 t.view(2, 64, 128)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: it never falls back."""
@@ -154,7 +158,11 @@ def test_cpu_path_counts_no_launches():
     ops.mla_decode_attention(torch.zeros(1, 2, 32), torch.zeros(1, 2, 16),
                              torch.zeros(1, 8, 32), torch.zeros(1, 8, 16),
                              hi=5, scale=0.1)
+    w = torch.zeros(2, 8, 16)
+    ops.grouped_experts(torch.zeros(3, 8), torch.tensor([1, 2]),
+                        torch.zeros(3), torch.arange(3), w, w,
+                        w.transpose(1, 2).contiguous())
     assert ops.LAUNCHES == {"sliced_matmul": 0, "coschedule": 0,
                             "flash_attention": 0, "rwkv6_scan": 0,
                             "rg_lru": 0, "decode_attention": 0,
-                            "mla_decode": 0}
+                            "mla_decode": 0, "grouped_experts": 0}
