@@ -37,7 +37,10 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      decode shape, the reduced widths, 128 heads, a row block at an offset
      and an empty one, timed at the first beside its bound; 2j: G1 at
      dsv2lite-mixed's prompt, even and skewed counts, timed beside its
-     bound and the bucketed route it replaces);
+     bound and the bucketed route it replaces; 2k: K3's causal window,
+     every head dim and the edges, then mellum2-mixed's window layer
+     (1, 32, 16384, 128) at W 1024, timed beside its bound and the plain
+     route it replaces);
   3. the dense path, with the launch counters set to 0 just before it and
      read just after: the scheduler-to-kernel handoff
      (``balanced_slice_sizes`` drives ``ops.coschedule``),
@@ -81,6 +84,13 @@ Phases, each asserting (a failure exits non-zero and prints no result):
      28 times a Qwen2-VL and 24 a Whisper decode run (12 self, 12 over the
      cross cache); each step profiled alone with its peak memory; ``train_loss`` once on each
      arch's prefill batch, finite;
+  3f. Mellum2, counted the same way: mellum2-12b-a2.5b at full width cut to
+     one period of its pattern (3 window layers and 1 full), a 1 x 16384
+     prefill and an 8 x 4096 decode tenant; a prefill step's window layers
+     on ``flash_fwd_window_kernel<128>`` (3) and its full layer on
+     ``flash_fwd_wgmma_kernel<128>`` (1), by symbol, G1 twice a layer a
+     prefill run, D1 once a layer a decode run over the rings and the full
+     cache;
   2f. (run after 2e) K3, K4 and K5 through their autograd Functions at the
      training path's shapes (phi3-mini's attention at 4096 tokens,
      rwkv6-1.6b's time mix and recurrentgemma-9b's RG-LRU at 2048): the
@@ -790,6 +800,9 @@ D2_KERNEL = "mla_decode_kernel"
 D2_COMBINE = "mla_combine_kernel"
 # G1 at dsv2lite-mixed's prompt: (tokens, top-k, experts, D, F)
 G1_SHAPE = (4096, 6, 64, 2048, 1408)
+# mellum2-mixed's prompt at a sliding-window layer: (B, H, S, D), kv heads
+# and the window
+K3W_SHAPE, K3W_KV, K3W_WINDOW = (1, 32, 16384, 128), 4, 1024
 G1_KERNELS = ("grouped_gate_up_kernel", "grouped_down_kernel")
 # the absorbed decode of one dsv2lite-mixed layer before D2: the f32 copy of
 # the latents and two f32 einsums, ~1.87 ms (PERF.md section 5; NVIDIA H100
@@ -1436,6 +1449,178 @@ def grouped_experts_phase(torch, ops, rows) -> None:
                     f"g1_{label}_down_ms": by[G1_KERNELS[1]]})
         del case, seg, pos
     torch.cuda.empty_cache()
+
+
+def k3_window_work(shape, window: int, kv: int, elt: int = 2):
+    """K3's (FLOPs, bytes) over keys q - k < ``window`` at (B, H, S, D):
+    two products of 2D FLOPs a pair, sum over q of min(q + 1, window)
+    pairs a row; q and out at H heads, k and v at ``kv``, each once."""
+    b, h, s, d = shape
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4.0 * d * pairs * b * h, 2 * b * (h + kv) * s * d * elt
+
+
+def window_phase(torch, ops, ref, A, randn, rows) -> None:
+    """Phase 2k: K3's causal window (``flash_fwd_window_kernel<D>``)
+    against the plain windowed attention: every head dim in bf16 at (1, 2,
+    200, D) under a window of 70 (f32 refused); at D 128 a prompt not a whole
+    number of tiles, a window not a whole number of tiles, a window of 1
+    and one past the prompt, which gives the causal kernel's bits; then at
+    ``K3W_SHAPE`` with the model's kv heads as ``_local_attention_block``
+    calls it (``attention._flash_fwd``, kv heads repeated), against the
+    plain route it replaces (``attention.chunked_attention`` in float32).
+    Timed (CUDA events): the kernel alone, the model's call, the plain
+    route in bf16, and the causal kernel at the same shape, beside the
+    window's bound (``k3_window_work``)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    card = nvidia_smi("name,power.limit")
+    for d in HEAD_DIMS:
+        q, k, v = (randn((1, 2, 200, d), torch.bfloat16) for _ in range(3))
+        max_err(torch, ops.flash_attention(q, k, v, bq=200, bk=200,
+                                           window=70),
+                ref.flash_attention(q, k, v, window=70), BF16_TOL)
+    q = randn((1, 2, 200, 64), torch.float32)
+    try:
+        ops.flash_attention(q, q, q, bq=200, bk=200, window=70)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3 took a window in f32")
+    log(f"[2k K3 window grid] D in {HEAD_DIMS}, bf16, (1, 2, 200, D), "
+        "window 70: within tol; f32 refused")
+    for s, w in ((1000, 100), (1000, 64), (200, 1), (4096, 1024),
+                 (100, 300), (2048, 4096)):
+        q, k, v = (randn((1, 4, s, 128), torch.bfloat16) for _ in range(3))
+        got = ops.flash_attention(q, k, v, bq=s, bk=s, window=w)
+        err = max_err(torch, got, ref.flash_attention(q, k, v, window=w),
+                      BF16_TOL)
+        same = torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                    bq=s, bk=s))
+        assert same == (w >= s), (s, w, same)
+        log(f"[2k K3 window edge] S {s}, W {w}: err {err:.3e}"
+            + ("; the causal kernel's bits" if same else ""))
+    b, h, s, d = K3W_SHAPE
+    q = randn((b, s, h, d), torch.bfloat16)
+    k, v = (randn((b, s, K3W_KV, d), torch.bfloat16) for _ in range(2))
+    blk = 1024                            # attention._pick_block(s, s)
+
+    def plain(q=q, k=k, v=v):
+        return A.chunked_attention(q, k, v, causal=True, window=K3W_WINDOW,
+                                   q_block=blk, kv_block=blk)
+
+    got = A._flash_fwd(q, k, v, causal=True, window=K3W_WINDOW)
+    want = A.chunked_attention(q.float(), k.float(), v.float(), causal=True,
+                               window=K3W_WINDOW, q_block=blk, kv_block=blk)
+    err = max_err(torch, got, want, BF16_TOL)
+    rw, rr = rel_errs(got, want)
+    assert rw < K3_REL_TOL and rr < K3_REL_TOL, (rw, rr)
+    del got, want
+    g = h // K3W_KV
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    ms = time_ms(torch, lambda: ops.flash_attention(
+        qh, kh, vh, window=K3W_WINDOW), 20)
+    call = time_ms(torch, lambda: A._flash_fwd(q, k, v, causal=True,
+                                               window=K3W_WINDOW), 10)
+    plain_ms = time_ms(torch, plain, 3)
+    causal_ms = time_ms(torch, lambda: ops.flash_attention(qh, kh, vh), 10)
+    evs = kernel_events(torch, lambda: ops.flash_attention(
+        qh, kh, vh, window=K3W_WINDOW), names_all("flash_fwd_window_kernel"))
+    assert n_launches(evs, f"flash_fwd_window_kernel<{d}>") == 1
+    assert n_launches(evs, "flash_fwd_wgmma_kernel") == 0
+    flops, nbytes = k3_window_work(K3W_SHAPE, K3W_WINDOW, K3W_KV)
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    rows["flash_attention"].update({
+        "window_ms": ms, "window_call_ms": call, "window_plain_ms": plain_ms,
+        "window_causal_ms": causal_ms, "window_bound_ms": b_ms,
+        "window_max_abs_err": err, "window_rel_err": rw})
+    log(f"[2k K3 window] {K3W_SHAPE} bf16, {K3W_KV} kv heads, W "
+        f"{K3W_WINDOW}: err {err:.3e}, relative {rw:.3e} whole, {rr:.3e} "
+        f"worst row (tol {K3_REL_TOL:g}, against f32 chunked); kernel "
+        f"{ms:.4f} ms, {b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); the model's call "
+        f"(kv heads repeated) {call:.4f} ms; the plain route it replaces "
+        f"{plain_ms:.4f} ms; the causal kernel at this shape "
+        f"{causal_ms:.4f} ms; {card}")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+
+
+def mellum2_phase(torch, dev, spec) -> dict:
+    """Phase 3f: mellum2-12b-a2.5b at full width cut to one period of its
+    pattern (3 window layers, then 1 full), a 1 x 16384 prefill and an 8 x
+    4096 decode tenant (t = 2048: the rings have wrapped) served on the H100
+    model, with the launch counters set to 0 just before it. Asserted: K3
+    once a layer a prefill run, a prefill step's window layers under
+    ``flash_fwd_window_kernel<128>`` (3) and its full layer under
+    ``flash_fwd_wgmma_kernel<128>`` (1) by symbol, G1 twice a layer a
+    prefill run, D1 once a layer a decode run (3 rings and 1 full cache).
+    Returns the phase's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import Job, SharedPodServer
+    from repro_torch.core.profiles import h100_profile_from_costs
+    from repro_torch.models import transformer as T
+    full = get_config("mellum2-12b-a2.5b")
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    kinds = cfg.layer_kinds()
+    assert kinds == ("local", "local", "local", "attn"), kinds
+    jobs = [Job("tenantM-mellum2-prefill", "mellum2-12b-a2.5b", "prefill", 2,
+                1, 16384),
+            Job("tenantM-mellum2-decode", "mellum2-12b-a2.5b", "decode", 2, 8,
+                4096)]
+    wts = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    srv = SharedPodServer(gpu_spec=spec, profile_fn=h100_profile_from_costs,
+                          use_reduced=False, device="cuda")
+    for job in jobs:
+        srv.submit(job, params=wts, cfg=cfg)
+    res = srv.drain()
+    launches = dict(ops.LAUNCHES)
+    assert all(j.num_slices == 0 for j in srv.jobs.values()), "not drained"
+    pre = prefill_runs(res["rounds"], jobs[0].name)
+    dec = prefill_runs(res["rounds"], jobs[1].name)
+    assert launches["flash_attention"] == cfg.num_layers * pre, \
+        (launches, pre)
+    assert launches["grouped_experts"] == 2 * cfg.num_layers * pre, \
+        (launches, pre)
+    assert decode_attn_layers(cfg) == cfg.num_layers
+    assert launches["decode_attention"] == cfg.num_layers * dec, \
+        (launches, dec)
+    step = srv._exec[jobs[0].name]
+    win, causal = "flash_fwd_window_kernel<128>", "flash_fwd_wgmma_kernel<128>"
+    evs = kernel_events(torch, step, lambda evs: (
+        n_launches(evs, win), n_launches(evs, causal)) == (3, 1))
+    counts = (n_launches(evs, win), n_launches(evs, causal))
+    assert counts == (3, 1), (counts, [e.key for e in evs])
+    total = sum(e.self_device_time_total for e in evs) / 1e3
+    win_ms = sum(e.self_device_time_total for e in evs if win in e.key) / 1e3
+    alone = time_ms(torch, step, 3)
+    log(f"[serve-mellum2] one period of {full.num_layers} layers at full "
+        f"width (d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, window {cfg.local_window}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}), bf16, seeded "
+        f"random weights ({T.count_params(wts) / 1e9:.3f} B params): rounds "
+        f"{decisions(res['rounds'])}; launches flash_attention "
+        f"{launches['flash_attention']} = {cfg.num_layers} x {pre} prefill "
+        f"runs, grouped_experts {launches['grouped_experts']}, "
+        f"decode_attention {launches['decode_attention']} = "
+        f"{cfg.num_layers} x {dec} decode runs (warm-ups included); a "
+        f"prefill step: {win} x{counts[0]} ({win_ms:.3f} ms), {causal} "
+        f"x{counts[1]}, device {total:.3f} ms, alone {alone:.3f} ms; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    decode_report(torch, "serve-mellum2", jobs[1].name, srv._exec[jobs[1].name],
+                  decode_attn_layers(cfg))
+    del srv, wts, res, step
+    torch.cuda.empty_cache()
+    return {name: launches.get(name, 0) for name in _build.NAMES}
 
 
 def mla_decode_phase(torch, ops, ref, randn, rows) -> None:
@@ -2594,7 +2779,8 @@ def main() -> int:
             entries = " ".join(e for e, _, _ in ptxas_entries(text))
             for d in (48, 192):
                 for sym in (f"flash_fwd_wgmma_kernelILi{d}E",
-                            f"flash_fwd_kernelIfLi{d}E"):
+                            f"flash_fwd_kernelIfLi{d}E",
+                            f"flash_fwd_window_kernelILi{d}E"):
                     assert sym in entries, (sym, entries)
 
     rows = {}
@@ -3142,6 +3328,9 @@ def main() -> int:
     # ---- phase 2j: G1 grouped_experts at the dropless prompt's shape -----
     grouped_experts_phase(torch, ops, rows)
 
+    # ---- phase 2k: K3's causal window at Mellum2's prompt ----------------
+    window_phase(torch, ops, ref, A, randn, rows)
+
     # ---- phase 3: the dense path, counted --------------------------------
     ops.reset_launches()
     mm, st = ops.coschedule(a, bm, x, run_a=run_a, run_b=run_b)
@@ -3649,6 +3838,10 @@ def main() -> int:
     del weights, batch
     torch.cuda.empty_cache()
 
+    # ---- phase 3f: Mellum2 (window and full layers), counted ---------------
+    m2_launches = mellum2_phase(torch, dev, spec)
+    log(f"[main path] mellum2 launches {m2_launches}")
+
     # ---- phase 5: training, counted ----------------------------------------
     train_launches = training_phase(torch, dev, card)
     log(f"[main path] training launches {train_launches}")
@@ -3666,7 +3859,8 @@ def main() -> int:
     log(f"[main path] serving mesh launches {serve_launches}")
 
     launches = {name: launches[name] + rec_launches[name] + slm_launches[name]
-                + ds_launches[name] + mm_launches[name] + train_launches[name]
+                + ds_launches[name] + mm_launches[name] + m2_launches[name]
+                + train_launches[name]
                 + mesh_launches[name] + ex_launches[name]
                 + serve_launches[name] for name in _build.NAMES}
     for name in _build.NAMES:

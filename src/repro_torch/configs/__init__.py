@@ -33,6 +33,7 @@ _REGISTRY = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "deepseek-v2-lite": "deepseek_v2_lite",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2_5b",
 }
 
 ARCH_IDS = tuple(_REGISTRY)

@@ -49,6 +49,16 @@
 // - f32, flash_fwd_kernel: f32 FMA on the CUDA cores, 64-row q tiles, four
 //   threads a row (no model runs attention in f32).
 //
+// A causal window W (keys k with q - k < W, the sliding-window layers' mask)
+// is a template parameter of the bf16 body: W = 0 instantiates
+// flash_fwd_wgmma_kernel<D> as before, and a window launches
+// flash_fwd_window_kernel<D>, the same body with its KV loop starting at the
+// tile that holds key q0 - W + 1 and the tiles across the lower edge masked,
+// so a prompt's windowed layer scores ~S W pairs instead of S^2 / 2. A row can
+// meet a tile wholly below its window before its first real key; its
+// probabilities there are taken against 0, not its running max, so they
+// underflow to 0 instead of to exp(0). The f32 kernel takes no window.
+//
 // What bounds it on an H100 SXM (data-sheet peaks, which assume its 700 W
 // power limit): at (1, 32, 2048, 96) bf16 causal, 25.8 GFLOP of
 // the 4 D S(S+1)/2 B H the causal mask leaves against 50 MB of q, k, v and
@@ -233,12 +243,14 @@ struct WgSmem {
   static constexpr size_t bytes = BARS + 8 * (1 + 2 * KV_STAGES) + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
-                       __grid_constant__ const CUtensorMap map_k,
-                       __grid_constant__ const CUtensorMap map_v, __nv_bfloat16* __restrict__ O,
-                       int S, float scale, int causal) {
+// The bf16 kernels' body: WINDOW false is the full or causal kernel
+// (``window`` unread), true the causal kernel over keys q - k < ``window``.
+template <int D, bool WINDOW>
+__device__ __forceinline__ void flash_fwd_wgmma_body(const CUtensorMap& map_q,
+                                                     const CUtensorMap& map_k,
+                                                     const CUtensorMap& map_v,
+                                                     __nv_bfloat16* __restrict__ O, int S,
+                                                     float scale, int causal, int window) {
   using namespace repro::sm90;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   using L = WgSmem<D>;
@@ -256,6 +268,8 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
   const int q0 = qt * WG_BQ;
   int n_kv = (S + WG_BKV - 1) / WG_BKV;
   if (causal) n_kv = min(n_kv, (q0 + WG_BQ - 1) / WG_BKV + 1);  // skip tiles above the diagonal
+  int kv_lo = 0;  // and, under a window, below the first row's first key
+  if constexpr (WINDOW) kv_lo = max(q0 - window + 1, 0) / WG_BKV;
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -272,9 +286,10 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
       mbar_expect_tx(q_bar, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < NB; ++c) tma_load_3d(base + c * WG_BQ * 64, &map_q, q_bar, BOX * c, q0, bh);
-      for (int t = 0; t < n_kv; ++t) {
-        const int s = t % KV_STAGES;
-        if (t >= KV_STAGES) mbar_wait(empty + 8 * s, ((t / KV_STAGES) - 1) & 1);
+      for (int t = kv_lo; t < n_kv; ++t) {
+        const int i = t - kv_lo;  // the ring's count
+        const int s = i % KV_STAGES;
+        if (i >= KV_STAGES) mbar_wait(empty + 8 * s, ((i / KV_STAGES) - 1) & 1);
         const uint32_t bar = full + 8 * s;
         const uint32_t ks = base + L::Q_BYTES + s * 2 * L::KV_BYTES;
         mbar_expect_tx(bar, 2 * L::KV_BYTES);
@@ -302,12 +317,13 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
   const uint32_t q_s = base + wg * 64 * 64;              // 64 bytes per row in each box
   mbar_wait(q_bar, 0);
 
-  for (int t = 0; t < n_kv; ++t) {
-    const int s = t % KV_STAGES;
+  for (int t = kv_lo; t < n_kv; ++t) {
+    const int i = t - kv_lo;
+    const int s = i % KV_STAGES;
     const int k0 = t * WG_BKV;
     const uint32_t k_s = base + L::Q_BYTES + s * 2 * L::KV_BYTES;
     const uint32_t v_s = k_s + L::KV_BYTES;
-    mbar_wait(full + 8 * s, (t / KV_STAGES) & 1);
+    mbar_wait(full + 8 * s, (i / KV_STAGES) & 1);
 
     float sc[32];
 #pragma unroll
@@ -324,7 +340,8 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    const bool edge = k0 + WG_BKV > S || (causal && k0 + WG_BKV - 1 > row0);
+    bool edge = k0 + WG_BKV > S || (causal && k0 + WG_BKV - 1 > row0);
+    if constexpr (WINDOW) edge = edge || k0 <= row1 - window;  // keys below row1's window
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -336,6 +353,10 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
           const int kpos = k0 + 8 * j + cq + e;
           if (kpos >= S || (causal && kpos > row0)) x0 = NEG_INF;
           if (kpos >= S || (causal && kpos > row1)) x1 = NEG_INF;
+          if constexpr (WINDOW) {
+            if (kpos <= row0 - window) x0 = NEG_INF;
+            if (kpos <= row1 - window) x1 = NEG_INF;
+          }
         }
         sc[4 * j + e] = x0;
         sc[4 * j + 2 + e] = x1;
@@ -354,14 +375,21 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     m0 = mn0;
     m1 = mn1;
     // A masked or padding score is -1e30 and the row max is a real score
-    // (key 0 is never masked), so its probability underflows to 0.
+    // (key 0 is never masked), so its probability underflows to 0. Under a
+    // window a row's first tiles can be wholly masked (max -1e30): there the
+    // probabilities are taken against 0.
+    float b0 = mn0, b1 = mn1;
+    if constexpr (WINDOW) {
+      if (mn0 == NEG_INF) b0 = 0.f;
+      if (mn1 == NEG_INF) b1 = 0.f;
+    }
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float p0 = __expf(sc[4 * j + e] - mn0);
-        const float p1 = __expf(sc[4 * j + 2 + e] - mn1);
+        const float p0 = __expf(sc[4 * j + e] - b0);
+        const float p1 = __expf(sc[4 * j + 2 + e] - b1);
         sc[4 * j + e] = p0;
         sc[4 * j + 2 + e] = p1;
         sum0 += p0;
@@ -416,6 +444,26 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
 }
 
 template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
+                       __grid_constant__ const CUtensorMap map_k,
+                       __grid_constant__ const CUtensorMap map_v, __nv_bfloat16* __restrict__ O,
+                       int S, float scale, int causal) {
+  flash_fwd_wgmma_body<D, false>(map_q, map_k, map_v, O, S, scale, causal, 0);
+}
+
+// causal over keys q - k < window (> 0): a symbol of its own, so that a
+// trace tells a windowed call from a full or causal one
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_window_kernel(__grid_constant__ const CUtensorMap map_q,
+                        __grid_constant__ const CUtensorMap map_k,
+                        __grid_constant__ const CUtensorMap map_v, __nv_bfloat16* __restrict__ O,
+                        int S, float scale, int window) {
+  flash_fwd_wgmma_body<D, true>(map_q, map_k, map_v, O, S, scale, 1, window);
+}
+
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
                int causal, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;  // 94 KB at D = 96, 164 KB at 192: above the 48 KB default
@@ -432,7 +480,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, int window, cudaStream_t stream) {
   // (D, S, B*H) in boxes of (32, rows, 1), 64-byte swizzle; at D = 80 the
   // third box of a row runs past D and TMA fills columns 80-95 with zeros,
   // at D = 48 the second box columns 48-63
@@ -450,40 +498,55 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, in
     e = repro::sm90::encode_bf16_map(&map_v, v, 3, dims, strides, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
   if (e != 0) return e;
   const size_t smem = WgSmem<D>::bytes;
+  const dim3 grid((s + WG_BQ - 1) / WG_BQ, bh);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  if (window > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_window_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_window_kernel<D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, out, s,
+                                                                     scale, window);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + WG_BQ - 1) / WG_BQ, bh);
-  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, scale, causal);
+  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, out, s,
+                                                                  scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
-           int causal, int dtype, cudaStream_t stream) {
-  if (dtype == repro::DTYPE_F32) return launch_f32<D>(q, k, v, o, bh, s, scale, causal, stream);
-  if (dtype == repro::DTYPE_BF16) return launch_bf16<D>(q, k, v, o, bh, s, scale, causal, stream);
+           int causal, int window, int dtype, cudaStream_t stream) {
+  if (window > 0 && !causal) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == repro::DTYPE_F32)  // no model runs a window in f32
+    return window > 0 ? static_cast<int>(cudaErrorInvalidValue)
+                      : launch_f32<D>(q, k, v, o, bh, s, scale, causal, stream);
+  if (dtype == repro::DTYPE_BF16)
+    return launch_bf16<D>(q, k, v, o, bh, s, scale, causal, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s, d) row-major and contiguous.
+// q, k, v, o: (bh, s, d) row-major and contiguous; window 0 none, else
+// causal over keys q - k < window.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh,
-                                   int s, int d, float scale, int causal, int dtype,
+                                   int s, int d, float scale, int causal, int window, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 48: return launch<48>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 64: return launch<64>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 80: return launch<80>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 96: return launch<96>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 128: return launch<128>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 160: return launch<160>(q, k, v, o, bh, s, scale, causal, dtype, st);
-    case 192: return launch<192>(q, k, v, o, bh, s, scale, causal, dtype, st);
+    case 32: return launch<32>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 48: return launch<48>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 64: return launch<64>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 80: return launch<80>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 96: return launch<96>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 128: return launch<128>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 160: return launch<160>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
+    case 192: return launch<192>(q, k, v, o, bh, s, scale, causal, window, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -61,11 +61,15 @@ def coschedule(a, b, x, *, scale: float = 2.0, run_a: int = 1,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
-                    bk: int = 128):
-    _fa.check_shapes(q, k, v, bq, bk)
+                    bk: int = 128, window: int = 0):
+    """``window`` > 0, the port's addition to the reference's keywords,
+    keeps the keys k with q - k < window of a causal call (a sliding-window
+    layer); 0 none."""
+    _fa.check_shapes(q, k, v, bq, bk, causal, window)
     if _on_cpu(q):
-        return ref.flash_attention(q, k, v, causal=causal)
-    return _fa.flash_attention(*_dense(q, k, v), causal=causal)
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(*_dense(q, k, v), causal=causal,
+                               window=window)
 
 
 def rwkv6_scan(r, k, v, w_log, u, *, chunk: int = 32, state=None):

@@ -39,13 +39,16 @@ def coschedule(a, b, x, scale):
     return matmul(a, b), streaming_scale(x, scale)
 
 
-def flash_attention(q, k, v, *, causal=True):
-    """q, k, v: (B, H, S, D) -> (B, H, S, D)."""
+def flash_attention(q, k, v, *, causal=True, window: int = 0):
+    """q, k, v: (B, H, S, D) -> (B, H, S, D); ``window`` > 0 keeps the
+    keys k with q - k < window."""
     s, d = q.shape[2], q.shape[3]
     scale = 1.0 / np.sqrt(d)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        if window > 0:
+            mask = mask.triu(-(window - 1))
         logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())

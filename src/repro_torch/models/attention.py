@@ -9,8 +9,11 @@ on the CPU. MLA's prompt takes the same route at its q.k dim (192 at full
 width), with v padded to it (``_pad_v``). The reference reaches the same
 function through ``full_attention``, ``chunked_attention`` or
 ``chunked_attention_causal_skip`` (pure XLA); they stay here as plain
-functions for the tests, and the sliding-window ``local`` blocks of
-``transformer.py`` run on them. Decode attends over the cache through
+functions for the tests, the CPU and autograd, and the sliding-window
+``local`` blocks of ``transformer.py`` run their prompts on them there; on
+the card those prompts take K3 with its causal window
+(``_flash_fwd(window=)``).
+Decode attends over the cache through
 ``ops.decode_attention`` (the split-K kernel D1 on the card, which reads
 the bf16 cache in place), as do the ring cache of the ``local`` blocks
 and Whisper's cross-attention decode; MLA's default decode
@@ -21,8 +24,11 @@ Whisper's encoder (non-causal, no cache) takes K3's full path; its
 decoder's cross-attention over the encoder's output (no cache) runs the
 plain ``full_attention``, as the reference's does. A window inside an
 ``attn`` block (``attention_kind="local"``) takes the reference's plain
-routes with the window, never K3, which has none (ROADMAP queue 1, item
-18).
+routes with the window, as the reference runs it. Under YaRN
+(``cfg.rope_scaling``) an ``attn`` block rotates q and k by its
+frequencies and multiplies q by its softmax gain before K3 or D1, which
+scale by 1/sqrt(hd) themselves; the ``local`` blocks keep plain RoPE
+(Mellum2's per-type rope).
 
 Caches are updated in place: a decode step writes its token's k/v into the
 cache it was given and returns the same tensors, where the functional
@@ -60,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (constrain, current_cache_block,
                                          seq_block)
@@ -237,6 +244,15 @@ def _flash(q, k, v, *, causal: bool):
     return _flash_fwd(q, k, v, causal=causal)
 
 
+def takes_window_kernel(q, k, v) -> bool:
+    """Whether a causal windowed prompt runs on K3's window: on the card,
+    bf16, a head dim K3 has, and no autograd graph recorded through it
+    (its backward would be the plain form). Elsewhere, and at head dim 256
+    (RecurrentGemma), the plain windowed routes."""
+    return (q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[-1] in HEAD_DIMS and not L.records_grad(q, k, v))
+
+
 def plain_attention(q, k, v, *, causal: bool, window: int = 0):
     """The attention the reference trains through, as ``gqa_forward``
     picks it with no cache: ``full_attention`` up to two blocks, else
@@ -270,8 +286,9 @@ class FlashAttention(torch.autograd.Function):
             ctx.saved_tensors, ctx.needs_input_grad[:3], (g,)) + (None,)
 
 
-def _flash_fwd(q, k, v, *, causal: bool):
-    """K3's forward (the plain version on the CPU)."""
+def _flash_fwd(q, k, v, *, causal: bool, window: int = 0):
+    """K3's forward (the plain version on the CPU); ``window`` > 0 keeps
+    the keys k with q - k < window of a causal call."""
     g = q.shape[2] // k.shape[2]
     s = q.shape[1]
     blk = _pick_block(s, s, 128)
@@ -279,7 +296,7 @@ def _flash_fwd(q, k, v, *, causal: bool):
         q.transpose(1, 2).contiguous(),
         k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
         v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
-        causal=causal, bq=blk, bk=blk)
+        causal=causal, bq=blk, bk=blk, window=window)
     return o.transpose(1, 2)
 
 
@@ -365,8 +382,11 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
     if kv_source is not None:
         o = full_attention(q, k, v, causal=False)
         return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo)), cache
-    q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta)
-    k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta)
+    rs = cfg.rope_scaling
+    q = L.positional(q, positions, cfg.pos_kind, cfg.rope_theta, rs)
+    k = L.positional(k, positions, cfg.pos_kind, cfg.rope_theta, rs)
+    if rs is not None and rs.softmax_gain != 1.0:
+        q = q * rs.softmax_gain         # K3 and D1 scale by 1/sqrt(hd)
 
     if cache is not None:
         cb = current_cache_block()
@@ -384,7 +404,7 @@ def gqa_forward(x, p, cfg, positions, *, causal=True, cache=None, t=None,
         else:
             if w.kv_idx is not None:    # every kv head, as the cache holds
                 k_kv = L.positional(k_kv, positions, cfg.pos_kind,
-                                    cfg.rope_theta)
+                                    cfg.rope_theta, rs)
             else:
                 k_kv, v_kv = k, v
             write_prompt(cache, {"k": k_kv, "v": v_kv}, cb,

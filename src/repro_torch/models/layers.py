@@ -173,9 +173,11 @@ def apply_mrope(x, positions3, theta: float = 10000.0):
     return _rotate(x, torch.cat(parts, dim=-1)[..., :, None, :])
 
 
-def positional(x, q_pos, pos_kind: str, theta: float):
+def positional(x, q_pos, pos_kind: str, theta: float, scaling=None):
+    """x rotated at ``q_pos`` by the ``pos_kind`` scheme; ``scaling`` (a
+    YaRN ``configs.RopeScaling``) applies to plain RoPE."""
     if pos_kind == "rope":
-        return apply_rope(x, q_pos, theta)
+        return apply_rope(x, q_pos, theta, scaling)
     if pos_kind == "mrope":        # 1-D ids: the same id on all three axes
         p3 = q_pos[..., None, :].expand(*q_pos.shape[:-1], 3,
                                         q_pos.shape[-1])

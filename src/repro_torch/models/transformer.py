@@ -223,10 +223,14 @@ def _local_ring_attend(q, cache, t: int, window, cb=None):
 
 
 def _local_attention_block(x, p, cfg, positions, cache, t):
-    """Local (sliding-window) attention with a ring-buffer cache: a
-    prompt on the plain attention functions, as the reference runs it (no
-    kernel: K3 takes neither a window nor head_dim 256, ROADMAP queue 1,
-    item 18), a decode step through ``_local_ring_attend`` (D1).
+    """Local (sliding-window) attention with a ring-buffer cache and
+    plain RoPE (never ``cfg.rope_scaling``, which is the full layers'): a
+    prompt on K3 with its causal window where
+    ``attention.takes_window_kernel`` (the card, bf16, a head dim K3 has,
+    no autograd), else on the plain attention functions, as the reference
+    runs it (the CPU, training, and head_dim 256, ROADMAP queue 1, item
+    18); a decode step through ``_local_ring_attend`` (D1). The attention,
+    projections and cache writes aside, is the span ``model.window``.
     On a sequence block, this rank's heads over the whole sequence, as
     ``attention.gqa_forward``; under a serving ``CacheBlock`` the ring's
     slots are split over ``model`` where m divides W."""
@@ -251,22 +255,22 @@ def _local_attention_block(x, p, cfg, positions, cache, t):
             k_kv, v_kv = k, v
         _local_ring_update(cache, k_kv, v_kv, pos_vec, cb,
                            blk if w.split and w.kv_idx is None else None)
-        if s == 1:  # decode: the token's position, t + 0 where t is given
+    with spans.span(spans.WINDOW):
+        if cache is not None and s == 1:
+            # decode: the token's position, t + 0 where t is given
             o = _local_ring_attend(q, cache, int(pos_vec[-1]) if t is None
                                    else t, cfg.local_window, cb)
+        elif A.takes_window_kernel(q, k, v):
+            o = A._flash_fwd(q, k, v, causal=True, window=cfg.local_window)
         else:
             blk = A._pick_block(s, s)
-            o = A.chunked_attention(q, k, v, causal=True,
-                                    window=cfg.local_window, q_block=blk,
-                                    kv_block=blk)
-    else:
-        blk = A._pick_block(s, s)
-        if s <= 2 * blk:
-            o = A.full_attention(q, k, v, causal=True, window=cfg.local_window)
-        else:
-            o = A.chunked_attention(q, k, v, causal=True,
-                                    window=cfg.local_window,
-                                    q_block=blk, kv_block=blk)
+            if cache is None and s <= 2 * blk:
+                o = A.full_attention(q, k, v, causal=True,
+                                     window=cfg.local_window)
+            else:
+                o = A.chunked_attention(q, k, v, causal=True,
+                                        window=cfg.local_window,
+                                        q_block=blk, kv_block=blk)
     return w.to_block(torch.einsum("bshk,hkd->bsd", o, w.wo))
 
 

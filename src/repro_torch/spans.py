@@ -11,8 +11,9 @@ span holds everything a drain did.
 The names are this module's constants, one place for each: the serving
 loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase, ``REPLAY``
 around a captured step's graph replay) and the model's (``EMBED`` ...
-``HEAD``, and inside a MoE FFN ``ROUTE`` and ``EXPERTS``). ``NAMES`` is
-every one of them.
+``HEAD``, inside a MoE FFN ``ROUTE`` and ``EXPERTS``, and ``WINDOW``
+around a sliding-window block's attention). ``NAMES`` is every one of
+them.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ FFN = "model.ffn"
 HEAD = "model.head"
 ROUTE = "model.route"
 EXPERTS = "model.experts"
+WINDOW = "model.window"
 NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, REPLAY, *STEP.values(),
-                   EMBED, VIEWS, MIXER, FFN, HEAD, ROUTE, EXPERTS})
+                   EMBED, VIEWS, MIXER, FFN, HEAD, ROUTE, EXPERTS, WINDOW})
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled

@@ -1159,3 +1159,108 @@ def test_g1_launches_twice_a_moe_layer_of_a_prompt_and_never_in_decode(cuda):
         torch.cuda.synchronize()
         assert ops.LAUNCHES["grouped_experts"] == 0
     assert bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.parametrize("s,window", [(16384, 1024), (1000, 100), (1000, 64),
+                                      (200, 1), (100, 300)],
+                         ids=["mellum2", "ragged-s-and-w", "ragged-s",
+                              "self-only", "past-the-prompt"])
+def test_k3_window_matches_the_plain_window(cuda, s, window):
+    """K3 with a causal window at Mellum2's window layer (1, 32, 16384,
+    128), W 1024, with its 4 kv heads repeated as ``_flash_fwd`` calls
+    it, against the plain windowed attention in float32
+    (``chunked_attention``, the route it replaces), and at the edges: S
+    not a whole number of 128-row tiles, W not a whole number of 64-key
+    tiles, W 1, W past the prompt."""
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=cuda).manual_seed(s + window)
+    h, kv = (32, 4) if s == 16384 else (4, 2)
+    q = torch.randn(1, s, h, 128, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(1, s, kv, 128, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    got = A._flash_fwd(q, k, v, causal=True, window=window)
+    blk = A._pick_block(s, s)
+    want = A.chunked_attention(q.float(), k.float(), v.float(), causal=True,
+                               window=window, q_block=blk, kv_block=blk)
+    torch.testing.assert_close(got.float(), want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_k3_window_takes_every_head_dim(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(2, 3, 200, d, generator=gen, device=cuda)
+               .bfloat16() for _ in range(3))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, bq=200, bk=200, window=70),
+        ref.flash_attention(q, k, v, window=70), **TOL[torch.bfloat16])
+
+
+def test_k3_window_refuses_f32(cuda):
+    """The f32 kernel takes no window: no model runs one in f32."""
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="bf16 only"):
+        ops.flash_attention(q, q, q, bq=64, bk=64, window=16)
+
+
+@pytest.mark.parametrize("s", [100, 2048])
+def test_a_window_past_the_prompt_is_the_causal_kernel(cuda, s):
+    """W >= S masks nothing the causal mask keeps: the windowed kernel
+    gives the causal kernel's bits, and runs under its own symbol."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(1, 4, s, 128, generator=gen, device=cuda)
+               .bfloat16() for _ in range(3))
+    causal = ops.flash_attention(q, k, v, causal=True, bq=s, bk=s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        windowed = ops.flash_attention(q, k, v, bq=s, bk=s, window=s)
+        torch.cuda.synchronize()
+    assert torch.equal(windowed, causal)
+    names = [e.key for e in prof.key_averages()]
+    assert any("flash_fwd_window_kernel<128>" in n for n in names), names
+    assert not any("flash_fwd_wgmma_kernel" in n for n in names), names
+
+
+def test_mellum2_window_layers_run_k3s_window(cuda, monkeypatch):
+    """Reduced Mellum2 (8 layers, two periods) in bf16 at a window of 64
+    over a 256-token prompt: K3 once a layer, the 6 window layers under
+    ``flash_fwd_window_kernel`` and the 2 full ones under
+    ``flash_fwd_wgmma_kernel``, and each windowed call within bf16's
+    tolerance of the plain windowed attention in float32 on the same q, k
+    and v. (The logits are not compared with the plain route's: a
+    rounding apart moves the renormalised top-k routing, which amplifies
+    it.)"""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention as A
+    cfg = dataclasses.replace(reduced(get_config("mellum2-12b-a2.5b")),
+                              local_window=64)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    calls, real = [], A._flash_fwd
+
+    def spy(q, k, v, *, causal, window=0):
+        out = real(q, k, v, causal=causal, window=window)
+        if window:
+            calls.append((q, k, v, window, out))
+        return out
+    monkeypatch.setattr(A, "_flash_fwd", spy)
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        T.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    counts = {e.key: e.count for e in prof.key_averages()}
+    d = cfg.head_dim
+    window = sum(n for key, n in counts.items()
+                 if f"flash_fwd_window_kernel<{d}>" in key)
+    full = sum(n for key, n in counts.items()
+               if f"flash_fwd_wgmma_kernel<{d}>" in key)
+    assert (window, full) == (6, 2), counts
+    assert len(calls) == 6
+    for q, k, v, w, out in calls:
+        want = A.chunked_attention(q.float(), k.float(), v.float(),
+                                   causal=True, window=w, q_block=128,
+                                   kv_block=128)
+        torch.testing.assert_close(out.float(), want, **TOL[torch.bfloat16])

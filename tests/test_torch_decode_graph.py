@@ -24,7 +24,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as TS
 from repro_torch.models import transformer as T
 
-ARCHS = ("phi3-mini-3.8b", "rwkv6-1.6b", "deepseek-v2-lite")
+ARCHS = ("phi3-mini-3.8b", "rwkv6-1.6b", "deepseek-v2-lite",
+         "mellum2-12b-a2.5b")
 BATCH, SEQ, SLICES = 2, 32, 4
 T_POS = SEQ // 2                   # the position every decode call writes
 TOL = dict(atol=2e-2, rtol=2e-2)   # bf16, as tests/test_torch_cuda.py's

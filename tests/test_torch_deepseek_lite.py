@@ -84,7 +84,9 @@ def test_without_scaling_every_arch_keeps_its_rope_tables(arch):
     """The frequencies and rotations of RoPE with no scaling are bit for
     bit the formula they were before YaRN came in."""
     cfg = get_config(arch)
-    assert (cfg.rope_scaling is not None) == (arch == ARCH)
+    # YaRN: DeepSeek-V2-Lite's MLA, and Mellum2's full attention layers
+    assert (cfg.rope_scaling is not None) == (
+        arch in (ARCH, "mellum2-12b-a2.5b"))
     d = cfg.mla.qk_rope_dim if cfg.mla is not None else cfg.head_dim
     before = 1.0 / (cfg.rope_theta ** (np.arange(0, d, 2, dtype=np.float32)
                                        / d))
