@@ -10,10 +10,11 @@ slice ratio (Eq. 8), and the dispatcher interleaves their slices.
 On the card each round issues the pair's slices on two CUDA streams, one
 per job, and synchronises at the end of the round: the two jobs' kernels
 share the SMs, which is the paper's concurrent kernel execution. On the
-CPU the slices run in order. A decode tenant's step is the same kernels
-on the same buffers at every call, so on the card ``submit`` captures it
-once into a CUDA graph and every slice replays the graph: one launch where
-the eager step makes thousands.
+CPU the slices run in order. A tenant's step is the same kernels on the
+same buffers at every call (a decode step's batch, token and position and
+a prompt's batch are fixed at ``submit``), so on the card ``submit``
+captures it once into a CUDA graph and every slice replays the graph: one
+launch where the eager step makes thousands.
 
 The hardware model is the caller's: ``gpu_spec`` and ``profile_fn``
 default to ``TPU_V5E`` and ``tpu_profile_from_costs``, exactly as in the
@@ -28,8 +29,9 @@ Spans (``repro_torch.spans``) name the work of a drain in a profiler's
 trace: ``serve.drain`` around the whole call, ``serve.plan`` (the engine's
 plan), ``serve.decide`` (each ``find_coschedule``), ``serve.round``, one
 ``serve.step.<phase>`` a slice, ``serve.sync`` (the round's synchronize),
-and inside a step ``serve.replay`` around a captured step's replay, or
-the model's ``model.embed``, ``model.views``, ``model.mixer``,
+and inside a step ``serve.replay`` around a captured decode step's
+replay (``serve.replay.prefill`` a prompt's), or the model's
+``model.embed``, ``model.views``, ``model.mixer``,
 ``model.ffn`` and ``model.head``. They exist only while a
 profiler records: run drains under ``torch.profiler.profile`` (with
 ``ProfilerActivity.CUDA`` on the card), call ``export_chrome_trace`` and
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -115,7 +118,7 @@ class SharedPodServer:
         self.log: List[tuple] = []
         self._plan_truth: Optional[IPCTable] = None
         self._streams: Dict[str, torch.cuda.Stream] = {}
-        # a decode tenant's capture on the card: None, or why it failed
+        # a tenant's capture on the card: None, or why it failed
         self.captures: Dict[str, Optional[str]] = {}
 
     # ---- job admission: build, warm up, profile, register ---- #
@@ -127,8 +130,8 @@ class SharedPodServer:
         arch's reduced or full one (``use_reduced``): a depth-cut config
         lets a model too large for the card run at full width. The
         scheduler's profile is the full arch's whatever ``cfg`` is. On the
-        card a decode tenant's step, whose batch, token and position are
-        fixed here, then runs as one CUDA graph (``_replayed``)."""
+        card the step, whose inputs are fixed here, then runs as one CUDA
+        graph where it can be captured (``_replayed``)."""
         if cfg is None:
             full_cfg = get_config(job.arch)
             cfg = reduced(full_cfg) if self.use_reduced else full_cfg
@@ -154,8 +157,8 @@ class SharedPodServer:
             def run(params=params, cfg=cfg, batch=batch):
                 logits, _, _ = T.forward(params, cfg, batch)
                 return logits
-        if job.phase == "decode" and self.device.type == "cuda":
-            run = self._replayed(job.name, run, params, caches, tok)
+        if self.device.type == "cuda":
+            run = self._replayed(job.name, run, spans.REPLAYS[job.phase])
         else:
             run()                           # warm-up: builds the kernels
         self._sync()
@@ -165,18 +168,23 @@ class SharedPodServer:
         self._exec[job.name] = run
         self.log.append(("submit", job.name, prof.pur, prof.mur, prof.rm))
 
-    def _replayed(self, name: str, step: Callable, params, caches, tok):
-        """A decode tenant's ``step`` as a CUDA graph replay. The step runs
-        once on a side stream (the warm-up, which also loads its kernels and
-        cuBLAS handles) and is then captured there; a capture launches
-        nothing, so the caches stay one step on and ``ops.LAUNCHES`` is put
-        back to what it was before it. The graph reads ``params``, ``tok``
-        and ``caches`` where they lie and writes the caches in place, its
-        activations in a memory pool of its own; each call replays it on the
-        caller's stream, adds to ``ops.LAUNCHES`` the launches its capture
-        counted, and returns a copy of its logits, which the next replay
-        overwrites. A step that cannot be captured (one that waits on the
-        host) stays eager; ``captures[name]`` is None or its error."""
+    def _replayed(self, name: str, step: Callable, span: str):
+        """A tenant's ``step`` as a CUDA graph replay. The step runs once on
+        a side stream (the warm-up, which also loads its kernels and cuBLAS
+        handles) and is then captured there; a capture launches nothing, so
+        a decode step's caches stay one step on and ``ops.LAUNCHES`` is put
+        back to what it was before it. The graph reads the tensors the step
+        closes over (weights, batch, token) where they lie and writes a
+        decode step's caches in place, its activations in a memory pool of
+        its own; each call replays it on the caller's stream inside
+        ``span``, adds to ``ops.LAUNCHES`` the launches its capture counted,
+        and returns a copy of its logits, which the next replay overwrites.
+        The replay wraps ``step``: it keeps the step, and with it those
+        tensors, alive, and ``inspect.signature`` gives the step's own
+        (``kbench.harness`` reads a decode step's caches there). A step that
+        cannot be captured (one that waits on the host, or one whose pool
+        does not fit) stays eager; ``captures[name]`` is None or its
+        error."""
         caller = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(caller)
@@ -204,9 +212,9 @@ class SharedPodServer:
             ops.LAUNCHES.update(before)
         self.captures[name] = None
 
-        def replay(graph=graph, logits=logits, params=params, caches=caches,
-                   tok=tok):
-            with spans.span(spans.REPLAY):
+        @functools.wraps(step)
+        def replay():
+            with spans.span(span):
                 graph.replay()
             for k, n in counted.items():
                 ops.LAUNCHES[k] += n
@@ -215,15 +223,16 @@ class SharedPodServer:
         return replay
 
     def capture_report(self) -> str:
-        """One line: the decode tenants whose step runs as one CUDA graph,
-        and those whose capture failed, with why."""
-        done = [f"{n} ({self.jobs[n].arch})"
-                for n, err in self.captures.items() if err is None]
-        failed = [f"{n} ({self.jobs[n].arch}): {err}"
-                  for n, err in self.captures.items() if err is not None]
-        return ("decode steps as one CUDA graph: " + (", ".join(done) or
-                "none") + "; eager, the capture failed: " +
-                ("; ".join(failed) or "none"))
+        """One line: the tenants whose step runs as one CUDA graph, and
+        those whose capture failed, with why."""
+        def who(n):
+            return f"{n} ({self.jobs[n].arch}, {self.jobs[n].phase})"
+        done = [who(n) for n, err in self.captures.items() if err is None]
+        failed = [f"{who(n)}: {err}" for n, err in self.captures.items()
+                  if err is not None]
+        return ("steps as one CUDA graph: " + (", ".join(done) or "none")
+                + "; eager, the capture failed: "
+                + ("; ".join(failed) or "none"))
 
     def _sync(self):
         if self.device.type == "cuda":

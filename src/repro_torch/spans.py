@@ -9,9 +9,10 @@ launched it by the ``correlation`` id the two share. One ``serve.drain``
 span holds everything a drain did.
 
 The names are this module's constants, one place for each: the serving
-loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase, ``REPLAY``
-around a captured step's graph replay) and the model's (``EMBED`` ...
-``HEAD``, inside a MoE FFN ``ROUTE`` and ``EXPERTS``, and ``WINDOW``
+loop's (``DRAIN`` ... ``SYNC``, ``STEP`` by a job's phase, ``REPLAYS``
+by a job's phase around a captured step's graph replay: ``REPLAY`` a
+decode step's, ``REPLAY_PREFILL`` a prompt's) and the model's (``EMBED``
+... ``HEAD``, inside a MoE FFN ``ROUTE`` and ``EXPERTS``, and ``WINDOW``
 around a sliding-window block's attention). ``NAMES`` is every one of
 them.
 """
@@ -27,6 +28,9 @@ DECIDE = "serve.decide"
 ROUND = "serve.round"
 SYNC = "serve.sync"
 REPLAY = "serve.replay"
+REPLAY_PREFILL = "serve.replay.prefill"
+REPLAYS = {"prefill": REPLAY_PREFILL, "decode": REPLAY,
+           "train": "serve.replay.train"}
 STEP = {phase: f"serve.step.{phase}"
         for phase in ("prefill", "decode", "train")}
 EMBED = "model.embed"
@@ -37,8 +41,9 @@ HEAD = "model.head"
 ROUTE = "model.route"
 EXPERTS = "model.experts"
 WINDOW = "model.window"
-NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, REPLAY, *STEP.values(),
-                   EMBED, VIEWS, MIXER, FFN, HEAD, ROUTE, EXPERTS, WINDOW})
+NAMES = frozenset({DRAIN, PLAN, DECIDE, ROUND, SYNC, *REPLAYS.values(),
+                   *STEP.values(), EMBED, VIEWS, MIXER, FFN, HEAD, ROUTE,
+                   EXPERTS, WINDOW})
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled

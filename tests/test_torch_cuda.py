@@ -307,7 +307,8 @@ def test_server_drains_through_the_kernels(cuda):
     decode_runs = 1 + sum(n1 if k1 == "b-decode" else
                           (n2 if k2 == "b-decode" else 0)
                           for k1, k2, n1, n2, _ in res["rounds"])
-    assert srv.captures == {"b-decode": None}      # a graph whose replays count
+    # graphs whose replays count
+    assert srv.captures == {"a-prefill": None, "b-decode": None}
     assert ops.LAUNCHES["decode_attention"] == decode_runs * reduced(
         get_config("starcoder2-15b")).num_layers
 
@@ -519,7 +520,9 @@ def test_recurrent_server_drains_through_k4_and_k5(cuda):
         kinds["rwkv6-1.6b"].count("rwkv6") * runs["c-prefill"]
     assert ops.LAUNCHES["rg_lru"] == \
         kinds["recurrentgemma-9b"].count("rglru") * runs["e-prefill"]
-    assert srv.captures == {"f-decode": None}      # a graph whose replays count
+    # graphs whose replays count
+    assert srv.captures == {"c-prefill": None, "e-prefill": None,
+                            "f-decode": None}
     assert ops.LAUNCHES["decode_attention"] == \
         kinds["recurrentgemma-9b"].count("local") * runs["f-decode"]
 

@@ -166,12 +166,12 @@ def test_the_capture_report_names_each_outcome():
     srv = TS.SharedPodServer(device=torch.device("cpu"))
     for name, arch in (("a", "phi3-mini-3.8b"), ("b", "rwkv6-1.6b")):
         srv.jobs[name] = TS.Job(name, arch, "decode", SLICES, BATCH, SEQ)
-    assert srv.capture_report() == ("decode steps as one CUDA graph: none; "
+    assert srv.capture_report() == ("steps as one CUDA graph: none; "
                                     "eager, the capture failed: none")
     srv.captures = {"a": None, "b": "RuntimeError: a sync"}
     assert srv.capture_report() == (
-        "decode steps as one CUDA graph: a (phi3-mini-3.8b); eager, the "
-        "capture failed: b (rwkv6-1.6b): RuntimeError: a sync")
+        "steps as one CUDA graph: a (phi3-mini-3.8b, decode); eager, the "
+        "capture failed: b (rwkv6-1.6b, decode): RuntimeError: a sync")
 
 
 @pytest.mark.cuda

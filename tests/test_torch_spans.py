@@ -88,7 +88,8 @@ def test_a_profiled_drain_holds_every_span(server, tmp_path):
         if k2 is not None:
             ran[k2] += n2
     steps = by["serve.step.prefill"] + by["serve.step.decode"]
-    assert not by[spans.REPLAY]          # on the CPU every step runs eagerly
+    # on the CPU every step runs eagerly
+    assert not by[spans.REPLAY] and not by[spans.REPLAY_PREFILL]
     assert len(by["serve.step.prefill"]) == ran["a-phi3-prefill"] == 2
     assert len(by["serve.step.decode"]) == ran["b-phi3-decode"] == 4
     for m in steps + by["serve.sync"]:
